@@ -1,0 +1,14 @@
+"""CF-KAN-1 (paper §4.D, Fig. 19): 39 MB high-performance operating point.
+Sized to ~39M 8-bit parameters: G=7, K=3 in both layers."""
+import dataclasses
+
+from repro_torch.core.quant import ASPConfig
+from repro_torch.models import cf_kan
+
+MODEL = cf_kan.CFKANConfig(
+    n_items=16384, hidden=108,
+    asp_enc=ASPConfig(grid_size=7, order=3, n_bits=8),
+    asp_dec=ASPConfig(grid_size=7, order=3, n_bits=8),
+    name="cf-kan-1")
+
+SMOKE_MODEL = dataclasses.replace(MODEL, n_items=256, hidden=16)

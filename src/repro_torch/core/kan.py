@@ -1,0 +1,485 @@
+"""Unified KAN execution API: backend registry + two-phase deploy/apply
+(port of ``repro.core.kan``).
+
+* **KANSpec** — one static description of a KAN stack (a single layer, an
+  FFN, or the CF-KAN autoencoder).
+* **register_backend(name)** — the deployment axis. Ported built-ins:
+    - ``ref``   : float Cox–de Boor oracle over the dequantised artifact,
+    - ``lut``   : quantised expanded-basis f32 matmul (the plain dataflow),
+    - ``fused`` : the hand-written CUDA kernel ``kernels/csrc/kan_fused.cu``
+                  (quantise → SH-LUT → K+1-tap contraction on chip),
+    - ``cim``   : bit-sliced RRAM crossbar simulator (``hw.cim``, kernel
+                  ``kernels/csrc/cim_mac.cu``) with optional KAN-SAM.
+  (``lut_int8`` and ``cim_tiled`` are not ported yet.)
+* **deploy(params, spec, stats=None) → DeployedKAN** — done ONCE: int8
+  codes + per-output-channel scales, the SH-LUT, the bit-slice image and
+  the KAN-SAM row order/attenuation.
+* **apply(deployed, x) → y** — run-time evaluation against the frozen
+  artifact; it never requantises.
+* **train_apply(params, x, spec)** — the training path's forward over float
+  master weights (QAT waits for the training slice).
+
+Parameters are plain dicts of tensors: a single unnamed layer owns
+``{"coeffs", "w_base"}``; a multi-layer spec nests one such dict per layer
+name.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import quant, splines
+from repro_torch.core.quant import ASPConfig
+
+
+# ---------------------------------------------------------------------------
+# Spec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KANLayerShape:
+    """Resolved (in, out, asp) view of one layer of a KANSpec."""
+    in_dim: int
+    out_dim: int
+    asp: ASPConfig
+
+    @property
+    def n_rows(self) -> int:
+        """Crossbar rows of the expanded coefficient matrix (I * (G+K))."""
+        return self.in_dim * self.asp.n_basis
+
+
+@dataclasses.dataclass(frozen=True)
+class KANSpec:
+    """Static description of a KAN stack: ``dims = (d0, ..., dn)`` chains
+    ``n`` KAN layers; ``asp`` is one ASPConfig per layer (one broadcasts)."""
+    dims: Tuple[int, ...]
+    asp: Tuple[ASPConfig, ...] = (ASPConfig(),)
+    backend: str = "lut"
+    base_activation: str = "relu"   # "" disables the b(x) residual branch
+    bound_input: bool = True        # tanh-bound inputs into the knot range
+    dtype: Any = torch.float32
+    layer_names: Tuple[str, ...] = ()
+    # cim backend only: a hw.cim.CIMConfig + the KAN-SAM mapping toggle
+    cim: Any = None
+    use_sam: bool = False
+
+    def __post_init__(self):
+        dims = tuple(int(d) for d in self.dims)
+        if len(dims) < 2:
+            raise ValueError(f"KANSpec.dims needs >= 2 entries, got {dims}")
+        object.__setattr__(self, "dims", dims)
+        asp = self.asp
+        if isinstance(asp, ASPConfig):
+            asp = (asp,)
+        asp = tuple(asp)
+        if len(asp) == 1:
+            asp = asp * (len(dims) - 1)
+        if len(asp) != len(dims) - 1:
+            raise ValueError(f"{len(asp)} ASPConfigs for {len(dims)-1} layers")
+        object.__setattr__(self, "asp", asp)
+        names = tuple(self.layer_names)
+        if names and len(names) != len(dims) - 1:
+            raise ValueError(f"{len(names)} layer_names for "
+                             f"{len(dims)-1} layers")
+        object.__setattr__(self, "layer_names", names)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.dims) - 1
+
+    @property
+    def names(self) -> Optional[Tuple[str, ...]]:
+        """Param-subtree keys; None means flat single-layer params."""
+        if self.layer_names:
+            return self.layer_names
+        if self.n_layers == 1:
+            return None
+        return tuple(f"l{i}" for i in range(self.n_layers))
+
+    def layer(self, i: int) -> KANLayerShape:
+        return KANLayerShape(self.dims[i], self.dims[i + 1], self.asp[i])
+
+    def with_backend(self, backend: str, **kw) -> "KANSpec":
+        return dataclasses.replace(self, backend=backend, **kw)
+
+    @classmethod
+    def single(cls, in_dim: int, out_dim: int,
+               asp: ASPConfig = ASPConfig(), **kw) -> "KANSpec":
+        """One KAN layer with flat {"coeffs", "w_base"} params."""
+        return cls(dims=(in_dim, out_dim), asp=(asp,), **kw)
+
+
+def param_count(spec: KANSpec) -> int:
+    """Trainable parameter count of the spec (coeffs + base weights)."""
+    n = 0
+    for i in range(spec.n_layers):
+        ls = spec.layer(i)
+        n += ls.in_dim * ls.asp.n_basis * ls.out_dim
+        if spec.base_activation:
+            n += ls.in_dim * ls.out_dim
+    return n
+
+
+def _layer_params(params, spec: KANSpec, i: int) -> Dict[str, torch.Tensor]:
+    names = spec.names
+    return params if names is None else params[names[i]]
+
+
+def _layer_stats(stats, spec: KANSpec, i: int):
+    if stats is None:
+        return None
+    names = spec.names
+    if names is None:
+        return stats
+    return stats.get(names[i]) if isinstance(stats, dict) else stats
+
+
+# ---------------------------------------------------------------------------
+# Shared math primitives
+# ---------------------------------------------------------------------------
+
+def bound_input(x: torch.Tensor, asp: ASPConfig) -> torch.Tensor:
+    """Map pre-activations into the knot range with a scaled tanh."""
+    half = 0.5 * (asp.x_max - asp.x_min)
+    mid = 0.5 * (asp.x_max + asp.x_min)
+    return mid + half * torch.tanh(x.to(torch.float32)).to(x.dtype)
+
+
+def base_branch(x: torch.Tensor, w_base: torch.Tensor, activation: str
+                ) -> torch.Tensor:
+    """The b(x) residual branch: ``act(x) @ w_base``."""
+    act = {"relu": torch.relu, "silu": torch.nn.functional.silu}[activation]
+    return act(x) @ w_base
+
+
+def spline_ref(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig
+               ) -> torch.Tensor:
+    """Float cardinal-B-spline oracle."""
+    basis = splines.bspline_basis_uniform(
+        x, asp.x_min, asp.x_max, asp.grid_size, asp.order)  # [..., I, G+K]
+    return torch.einsum("...ig,igo->...o", basis, coeffs)
+
+
+def spline_lut(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig,
+               hemi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantised expanded-basis matmul over float coefficients."""
+    if hemi is None:
+        hemi = quant.hemi_for(asp, x.device)
+    basis = quant.quantized_basis(x, hemi, asp).to(coeffs.dtype)
+    lead = basis.shape[:-2]
+    ik = basis.shape[-2] * basis.shape[-1]
+    return basis.reshape(lead + (ik,)) @ coeffs.reshape(ik, coeffs.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Deployed artifact
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeployedLayer:
+    """Frozen per-layer artifact — what gets programmed into the hardware."""
+    codes: torch.Tensor                     # [I, S, O] int8
+    scale: torch.Tensor                     # [1, 1, O] f32
+    hemi: torch.Tensor                      # [ceil(L/2), K+1] f32 SH-LUT
+    w_base: Optional[torch.Tensor] = None   # [I, O] residual-branch weights
+    atten: Optional[torch.Tensor] = None    # [R] f32 row attenuation (cim)
+    row_order: Optional[torch.Tensor] = None  # [R] int32 phys-of-logical
+    slices: Optional[torch.Tensor] = None   # [I, S, O, 8] uint8 (cim)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeployedKAN:
+    """Frozen KAN stack artifact: produced once by ``deploy``, consumed by
+    ``apply``."""
+    layers: Tuple[DeployedLayer, ...]
+    spec: KANSpec
+
+
+# ---------------------------------------------------------------------------
+# Backend registry
+# ---------------------------------------------------------------------------
+
+class KANBackend:
+    """One execution substrate for deployed KAN layers. Subclass, override
+    ``run`` (and optionally ``deploy_extras``/``train_run``), and decorate
+    with ``@register_backend(name)``."""
+    name = "?"
+
+    def deploy_extras(self, codes: torch.Tensor, scale: torch.Tensor,
+                      lspec: KANLayerShape, spec: KANSpec, stats
+                      ) -> Dict[str, torch.Tensor]:
+        """Backend-specific artifact fields (keys of DeployedLayer)."""
+        del codes, scale, lspec, spec, stats
+        return {}
+
+    def run(self, layer: DeployedLayer, lspec: KANLayerShape, spec: KANSpec,
+            x: torch.Tensor, generator: Optional[torch.Generator] = None
+            ) -> torch.Tensor:
+        """Spline forward against the frozen artifact (no requantisation)."""
+        raise NotImplementedError
+
+    def train_run(self, coeffs: torch.Tensor, lspec: KANLayerShape,
+                  spec: KANSpec, x: torch.Tensor) -> torch.Tensor:
+        """Training-path spline forward over float master coefficients;
+        the default is the quantised LUT path."""
+        return spline_lut(x, coeffs, lspec.asp)
+
+
+_BACKENDS: Dict[str, KANBackend] = {}
+
+
+def register_backend(name: str):
+    """Class/instance decorator: ``@register_backend("mine")``."""
+    def deco(obj):
+        inst = obj() if isinstance(obj, type) else obj
+        inst.name = name
+        _BACKENDS[name] = inst
+        return obj
+    return deco
+
+
+def get_backend(name: str) -> KANBackend:
+    """Registered backend instance by name (KeyError lists known names)."""
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise KeyError(f"unknown KAN backend {name!r}; registered backends: "
+                       f"{sorted(_BACKENDS)}") from None
+
+
+def backends() -> Tuple[str, ...]:
+    """Sorted names of all registered backends."""
+    return tuple(sorted(_BACKENDS))
+
+
+@register_backend("ref")
+class RefBackend(KANBackend):
+    """Float basis over the dequantised artifact: accuracy ground truth."""
+
+    def run(self, layer, lspec, spec, x, generator=None):
+        coeffs = quant.dequantize_coeffs(layer.codes, layer.scale)
+        return spline_ref(x, coeffs, lspec.asp)
+
+    def train_run(self, coeffs, lspec, spec, x):
+        return spline_ref(x, coeffs, lspec.asp)
+
+
+@register_backend("lut")
+class LutBackend(KANBackend):
+    """Quantised expanded-basis f32 matmul over the int8 codes + one scale
+    (the plain dataflow the fused kernel fuses)."""
+
+    def run(self, layer, lspec, spec, x, generator=None):
+        basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+        lead = basis.shape[:-2]
+        ik = basis.shape[-2] * basis.shape[-1]
+        e = basis.reshape(lead + (ik,)).to(torch.float32)
+        c = layer.codes.to(torch.float32).reshape(ik, -1)
+        y = e @ c
+        return (y * layer.scale.reshape(-1).to(torch.float32)).to(x.dtype)
+
+
+@register_backend("fused")
+class FusedBackend(KANBackend):
+    """The hand-written fused kernel over the artifact's int8 codes and
+    SH-LUT (its plain version on the CPU)."""
+
+    def run(self, layer, lspec, spec, x, generator=None):
+        from repro_torch.kernels import ops
+        return ops.kan_spline_fused_deployed(x, layer.codes, layer.scale,
+                                             lspec.asp, hemi=layer.hemi)
+
+    def train_run(self, coeffs, lspec, spec, x):
+        from repro_torch.kernels import ops
+        codes, scale = quant.quantize_coeffs(coeffs, lspec.asp, axis=(0, 1))
+        return ops.kan_spline_fused_deployed(x, codes, scale, lspec.asp)
+
+
+@register_backend("cim")
+class CimBackend(KANBackend):
+    """Bit-sliced RRAM crossbar simulator (hw.cim) with optional KAN-SAM.
+    Deploy freezes the bit-slice image, the per-logical-row IR-drop
+    attenuation (uniform, or KAN-SAM sorted with Phase-A stats) and the
+    physical row order."""
+
+    def _cim_cfg(self, spec):
+        from repro_torch.hw import cim as cim_lib
+        return spec.cim if spec.cim is not None else cim_lib.CIMConfig()
+
+    def deploy_extras(self, codes, scale, lspec, spec, stats):
+        from repro_torch.core import kan_sam
+        from repro_torch.hw import cim as cim_lib
+        ccfg = self._cim_cfg(spec)
+        pos_att = cim_lib.row_attenuation(lspec.n_rows, ccfg, codes.device)
+        out = {"slices": quant.bit_slices(codes)}
+        if spec.use_sam:
+            if stats is None:
+                raise ValueError(
+                    "KAN-SAM deploy needs Phase-A BasisStats: pass "
+                    "deploy(params, spec, stats=...) with one entry per "
+                    "layer name")
+            c_w = kan_sam.criticality(stats, codes)
+            out["row_order"], out["atten"] = kan_sam.sam_row_map(c_w, pos_att)
+        else:
+            out["atten"] = pos_att
+        return out
+
+    def run(self, layer, lspec, spec, x, generator=None):
+        from repro_torch.hw import cim as cim_lib
+        basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+        v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
+        w = layer.codes.reshape(lspec.n_rows, lspec.out_dim)
+        y = cim_lib.cim_forward(v, w, self._cim_cfg(spec),
+                                atten_of_logical=layer.atten,
+                                generator=generator)
+        return y * layer.scale.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# init / deploy / apply / train_apply
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, lspec: KANLayerShape, spec: KANSpec,
+                device) -> Dict[str, torch.Tensor]:
+    """Small-noise spline coefficients + LeCun base weights."""
+    shape = (lspec.in_dim, lspec.asp.n_basis, lspec.out_dim)
+    coeffs = torch.randn(shape, generator=gen) * (0.1 / lspec.in_dim ** 0.5)
+    params = {"coeffs": coeffs.to(device=device, dtype=spec.dtype)}
+    if spec.base_activation:
+        w_b = (torch.randn((lspec.in_dim, lspec.out_dim), generator=gen)
+               / lspec.in_dim ** 0.5)
+        params["w_base"] = w_b.to(device=device, dtype=spec.dtype)
+    return params
+
+
+def init(seed: Union[int, torch.Generator], spec: KANSpec, *, device=None):
+    """Init the param tree for a spec (flat for a bare single layer). The
+    draws come from a CPU ``torch.Generator`` (seeded from ``seed`` if it is
+    an int), so a seed gives the same weights on every device."""
+    device = resolve_device(device)
+    gen = seed
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(int(seed))
+    names = spec.names
+    if names is None:
+        return _init_layer(gen, spec.layer(0), spec, device)
+    return {name: _init_layer(gen, spec.layer(i), spec, device)
+            for i, name in enumerate(names)}
+
+
+def deploy(params, spec: KANSpec, stats=None) -> DeployedKAN:
+    """Phase 1 — build the artifact ONCE: int8 codes + per-output-channel
+    scales (``quantize_coeffs(..., axis=(0, 1))``), the SH-LUT, and the
+    backend's extras (cim: bit slices + KAN-SAM row order/attenuation from
+    Phase-A ``stats``). The artifact lives on the params' device. An
+    already-deployed artifact passes through unchanged."""
+    if isinstance(params, DeployedKAN):
+        return params
+    backend = get_backend(spec.backend)
+    layers = []
+    for i in range(spec.n_layers):
+        lp = _layer_params(params, spec, i)
+        lspec = spec.layer(i)
+        coeffs = lp["coeffs"].to(torch.float32)
+        codes, scale = quant.quantize_coeffs(coeffs, lspec.asp, axis=(0, 1))
+        hemi = quant.hemi_for(lspec.asp, coeffs.device)
+        extras = backend.deploy_extras(codes, scale, lspec, spec,
+                                       _layer_stats(stats, spec, i))
+        layers.append(DeployedLayer(
+            codes=codes, scale=scale.to(torch.float32), hemi=hemi,
+            w_base=lp.get("w_base"), atten=extras.get("atten"),
+            row_order=extras.get("row_order"), slices=extras.get("slices")))
+    return DeployedKAN(tuple(layers), spec)
+
+
+@torch.no_grad()
+def apply(deployed: DeployedKAN, x: torch.Tensor, *,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Phase 2 — run-time evaluation against the frozen artifact, for every
+    backend. Performs no coefficient quantisation and builds no LUTs.
+    ``generator`` draws the cim backend's readout noise."""
+    spec = deployed.spec
+    backend = get_backend(spec.backend)
+    for i, layer in enumerate(deployed.layers):
+        lspec = spec.layer(i)
+        xb = bound_input(x, lspec.asp) if spec.bound_input else x
+        y = backend.run(layer, lspec, spec, xb, generator=generator)
+        if spec.base_activation and layer.w_base is not None:
+            y = y + base_branch(xb, layer.w_base, spec.base_activation)
+        x = y
+    return x
+
+
+def train_apply(params, x: torch.Tensor, spec: KANSpec, *, qat: bool = False
+                ) -> torch.Tensor:
+    """Training twin of ``apply``: float master weights through the same
+    backend dispatch (forward only). The QAT path (fake-quantised
+    coefficients under a straight-through estimator, and the fused kernel's
+    autograd wrapper) belongs to the training slice and is not ported."""
+    if qat:
+        raise NotImplementedError(
+            "train_apply(qat=True) is not ported yet (training slice)")
+    backend = get_backend(spec.backend)
+    for i in range(spec.n_layers):
+        lp = _layer_params(params, spec, i)
+        lspec = spec.layer(i)
+        xb = bound_input(x, lspec.asp) if spec.bound_input else x
+        y = backend.train_run(lp["coeffs"], lspec, spec, xb)
+        if spec.base_activation and "w_base" in lp:
+            y = y + base_branch(xb, lp["w_base"], spec.base_activation)
+        x = y
+    return x
+
+
+def apply_any(params_or_deployed, x: torch.Tensor, spec: KANSpec
+              ) -> torch.Tensor:
+    """A DeployedKAN runs the frozen integer path, a raw param tree the
+    training-path forward."""
+    if isinstance(params_or_deployed, DeployedKAN):
+        return apply(params_or_deployed, x)
+    return train_apply(params_or_deployed, x, spec)
+
+
+# ---------------------------------------------------------------------------
+# Weights carried across from the JAX package (as numpy arrays)
+# ---------------------------------------------------------------------------
+
+_DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
+           np.dtype(np.int32): torch.int32,
+           np.dtype(np.float32): torch.float32}
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"unsupported array dtype {a.dtype}")
+    return torch.from_numpy(np.array(a)).to(device)   # a writable copy
+
+
+def params_from_numpy(tree: Mapping, device=None):
+    """A param tree given as (nested) dicts of numpy arrays — e.g. the JAX
+    package's ``{"enc": {"coeffs", "w_base"}, "dec": {...}}`` moved to
+    numpy — as the port's dict of tensors on ``device``."""
+    device = resolve_device(device)
+    return {k: params_from_numpy(v, device) if isinstance(v, Mapping)
+            else _to_tensor(v, device) for k, v in tree.items()}
+
+
+def deployed_from_numpy(layers: Sequence[Mapping], spec: KANSpec,
+                        device=None) -> DeployedKAN:
+    """A deployed artifact from per-layer mappings of DeployedLayer field
+    names to numpy arrays (or None) — e.g. a JAX ``DeployedKAN``'s layers —
+    so both packages can serve one identical artifact."""
+    device = resolve_device(device)
+    fields = [f.name for f in dataclasses.fields(DeployedLayer)]
+    out = []
+    for layer in layers:
+        kw = {f: _to_tensor(layer[f], device) for f in fields
+              if layer.get(f) is not None}
+        out.append(DeployedLayer(**kw))
+    return DeployedKAN(tuple(out), spec)

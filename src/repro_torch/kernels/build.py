@@ -1,0 +1,109 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. No ``--use_fast_math``:
+the kernels rely on IEEE division and ``rintf``. The library goes to
+``kernels/build/`` (ignored by git) under a name keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+at once. Nothing is built or loaded until a kernel is first launched.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: argument types in order; each returns cudaGetLastError().
+SIGNATURES = {
+    # x, codes, scale, hemi, y, B, I, S, O, k1, ld, n_levels, half, x_min,
+    # step, stream
+    "kan_fused_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _P),
+    # v, w, atten, out, B, R, C, array_size, lsb, stream
+    "cim_mac_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(lib_path: Path) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        sources = sorted(CSRC.glob("*.cu"))
+        procs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+             str(tmp / f"{src.stem}.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sources]
+        logs, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp / lib_path.name),
+             *(str(tmp / f"{s.stem}.o") for s in sources)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        lib_path.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(tmp / lib_path.name, lib_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument and return types declared."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        _build(lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,104 @@
+"""Public wrappers around the hand-written kernels (port of
+``repro.kernels.ops``).
+
+Each wrapper checks device, dtype, shape and contiguity, flattens leading
+batch dims, and then takes exactly one of two paths: the plain PyTorch
+version for a tensor on the CPU, the CUDA kernel for a tensor on the card.
+There is no other branch and no fallback. The kernels count their launches;
+``launch_counts``/``reset_launch_counts`` read and clear those counts.
+
+The QAT ``kan_spline_fused`` autograd wrapper belongs to the training slice
+and is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.quant import ASPConfig
+from repro_torch.kernels import cim_mac as _cim
+from repro_torch.kernels import kan_fused as _kf
+from repro_torch.kernels import ref
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, by kernel."""
+    return {"kan_fused": _kf.kan_fused.launches,
+            "cim_mac": _cim.cim_mac.launches}
+
+
+def reset_launch_counts() -> None:
+    _kf.kan_fused.launches = 0
+    _cim.cim_mac.launches = 0
+
+
+def _same_device(what: str, ref_t: torch.Tensor, **tensors) -> None:
+    if ref_t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {ref_t.device}")
+    for name, t in tensors.items():
+        if t.device != ref_t.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, the input "
+                             f"on {ref_t.device}")
+
+
+def kan_spline_fused_deployed(x: torch.Tensor, codes: torch.Tensor,
+                              scale: torch.Tensor, asp: ASPConfig,
+                              hemi: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Deployed-path fused spline forward: frozen int8 codes, per-output-
+    channel scales and the artifact's SH-LUT go straight to the kernel (no
+    requantisation). What the ``fused`` backend runs at serving time.
+
+    x: [..., I] float (bounded); codes: [I, S, O] int8 contiguous; scale:
+    O elements. Returns [..., O] in x.dtype.
+    """
+    lead, i, o = x.shape[:-1], x.shape[-1], codes.shape[-1]
+    if hemi is None:
+        hemi = quant.hemi_for(asp, x.device)
+    _same_device("kan_spline_fused_deployed", x, codes=codes, scale=scale,
+                 hemi=hemi)
+    if codes.dtype != torch.int8 or codes.shape != (i, asp.n_basis, o):
+        raise ValueError(f"codes must be int8 [{i}, {asp.n_basis}, {o}], "
+                         f"got {codes.dtype} {tuple(codes.shape)}")
+    if scale.numel() != o:
+        raise ValueError(f"scale has {scale.numel()} elements for O={o}")
+    if not (codes.is_contiguous() and hemi.is_contiguous()):
+        raise ValueError("codes and hemi must be contiguous")
+    xf = x.reshape(-1, i).to(torch.float32).contiguous()
+    scale_o = scale.reshape(o).to(torch.float32).contiguous()
+    if x.device.type == "cpu":
+        y = ref.kan_spline_ref(xf, codes, scale_o, asp, hemi)
+    else:
+        y = _kf.kan_fused(xf, codes, scale_o, hemi.to(torch.float32),
+                          asp=asp)
+    return y.reshape(lead + (o,)).to(x.dtype)
+
+
+def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,
+            *, array_size: int, adc_bits: int = 8,
+            in_scale: float = 1.0) -> torch.Tensor:
+    """Bit-sliced ACIM MAC. v: [..., R] float, w_codes: [R, C] int8
+    contiguous, row_atten: [R] float. A ragged final array counts as dead
+    (atten 0) rows. Returns [..., C] f32."""
+    lead, r, c = v.shape[:-1], v.shape[-1], w_codes.shape[-1]
+    _same_device("cim_mac", v, w_codes=w_codes, row_atten=row_atten)
+    if w_codes.dtype != torch.int8 or w_codes.shape != (r, c):
+        raise ValueError(f"w_codes must be int8 [{r}, C], got "
+                         f"{w_codes.dtype} {tuple(w_codes.shape)}")
+    if not w_codes.is_contiguous():
+        raise ValueError("w_codes must be contiguous")
+    if row_atten.shape != (r,):
+        raise ValueError(f"row_atten must be [{r}], got "
+                         f"{tuple(row_atten.shape)}")
+    vf = v.reshape(-1, r).to(torch.float32).contiguous()
+    att = row_atten.to(torch.float32).contiguous()
+    if v.device.type == "cpu":
+        y = ref.cim_mac_ref(vf, w_codes, att, array_size, adc_bits, in_scale)
+    else:
+        # the ADC step as the reference computes it: a Python float that
+        # the kernel receives rounded to f32
+        lsb = float(array_size) * in_scale / float(2 ** adc_bits - 1)
+        y = _cim.cim_mac(vf, w_codes, att, array_size=array_size, lsb=lsb)
+    return y.reshape(lead + (c,))

@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the hand-written kernels (port of
+``repro.kernels.ref``).
+
+Each kernel in ``kernels/`` is held against its plain version here: on the
+CPU the wrappers in ``ops`` run these, and on the card ``chip_smoke.py``
+compares the kernel with them on the same inputs.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.quant import ASPConfig
+
+
+def kan_spline_ref(x: torch.Tensor, c_codes: torch.Tensor,
+                   scale: torch.Tensor, asp: ASPConfig,
+                   hemi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the fused KAN spline layer.
+
+    x: [B, I] float (already bounded to the knot range); c_codes: [I, G+K, O]
+    int8; scale: [O] float. Returns [B, O] f32: (E @ codes) * scale with the
+    expanded basis E materialised.
+    """
+    if hemi is None:
+        hemi = quant.hemi_for(asp, x.device)
+    basis = quant.quantized_basis(x, hemi, asp)        # [B, I, G+K]
+    e = basis.reshape(x.shape[0], -1).to(torch.float32)
+    c = c_codes.to(torch.float32).reshape(e.shape[1], -1)
+    return (e @ c) * scale[None, :]
+
+
+def cim_mac_ref(v: torch.Tensor, w_codes: torch.Tensor,
+                row_atten: torch.Tensor, array_size: int, adc_bits: int,
+                in_scale: float = 1.0) -> torch.Tensor:
+    """Plain version of the bit-sliced ACIM MAC.
+
+    For each physical array of ``array_size`` rows and each bit k < 8:
+    ``psum_k = (v*atten) @ (bit_k(|w|) * sign(w))``, read out by the ADC as
+    ``round(psum_k / lsb) * lsb`` (half to even), recombined as
+    ``sum_k 2^k * readout``. A ragged final array is padded with dead rows.
+
+    The ADC rounding makes the result depend on the f32 summation order of
+    each psum (a psum near .5 LSB flips a whole step). The rows of an array
+    are therefore added one at a time in row order, as the CUDA kernel adds
+    them, so the two give bit-identical psums and readouts.
+
+    v: [B, R] float; w_codes: [R, C] int8; row_atten: [R] float.
+    Returns [B, C] f32.
+    """
+    b, r = v.shape
+    c = w_codes.shape[1]
+    n_arrays = -(-r // array_size)
+    pad = n_arrays * array_size - r
+    vf = torch.nn.functional.pad(v.to(torch.float32), (0, pad))
+    wf = torch.nn.functional.pad(w_codes.to(torch.int32), (0, 0, 0, pad))
+    att = torch.nn.functional.pad(row_atten.to(torch.float32), (0, pad))
+
+    mag = torch.abs(wf)
+    sgn = torch.sign(wf).to(torch.float32)
+    va = (vf * att[None, :]).reshape(b, n_arrays, array_size)
+    shifts = torch.arange(8, dtype=torch.int32, device=v.device)
+    bits = ((mag[None] >> shifts[:, None, None]) & 1).to(torch.float32)
+    bits = (bits * sgn[None]).reshape(8, n_arrays, array_size, c)
+
+    fs = float(array_size) * in_scale                 # ADC full scale
+    lsb = fs / (2 ** adc_bits - 1)
+
+    psum = torch.zeros((8, b, n_arrays, c), dtype=torch.float32,
+                       device=v.device)
+    for j in range(array_size):                       # row order
+        psum.addcmul_(va[None, :, :, j, None], bits[:, None, :, j, :])
+    lsb_t = torch.full((), lsb, dtype=torch.float32, device=v.device)
+    psum_q = torch.round(psum / lsb_t) * lsb_t        # per-array ADC readout
+    out = torch.zeros((b, c), dtype=torch.float32, device=v.device)
+    for k in range(8):
+        out = out + (2.0 ** k) * psum_q[k].sum(dim=1)
+    return out
+
+
+def cim_mac_ideal(v: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
+    """Noise-free digital MAC for degradation comparisons."""
+    return v.to(torch.float32) @ w_codes.to(torch.float32)
+

@@ -1,0 +1,84 @@
+"""The port stands alone: ``repro_torch`` imports neither ``jax`` nor
+``repro``, and its entry points run on the card unless told otherwise."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import cf_kan_1  # noqa: E402
+from repro_torch.core import kan  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models import cf_kan  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_imports_with_jax_and_repro_blocked():
+    """Every module of the package imports in a process where ``jax`` and
+    ``repro`` cannot be imported."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None      # any import of them now fails
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                        and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_sources_name_no_jax_or_repro():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert words[1].split(".")[0] not in ("jax", "repro"), (
+                    path, line)
+
+
+def test_entry_points_need_a_card_unless_told(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = kan.KANSpec.single(4, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kan.init(0, spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cf_kan.init(0, cf_kan_1.SMOKE_MODEL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kan.params_from_numpy({}, None)
+    params = kan.init(0, spec, device="cpu")
+    assert params["coeffs"].device.type == "cpu"
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """The kernels build only where the CUDA toolkit is; the library name
+    follows the sources."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    path = build.library_path()
+    assert path.parent == tmp_path and path.name.startswith("libkernels_")
+    assert path == build.library_path()
+    assert {p.name for p in build.CSRC.glob("*.cu")} == {"kan_fused.cu",
+                                                         "cim_mac.cu"}
+    if build.shutil.which("nvcc") is None and not Path(
+            "/usr/local/cuda/bin/nvcc").exists():
+        build.load.cache_clear()
+        try:
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                build.load()
+        finally:
+            build.load.cache_clear()
