@@ -17,16 +17,28 @@ Phases (any failed check raises, and the script exits non-zero):
    rtol 1e-4`` (the JAX suite's bar, set at R <= 256) plus the same
    ``1e-6 * sum|terms|``, the terms being ``2^k * readout`` over up to 1280
    arrays x 8 slices summed in another order; a larger difference must be a
-   whole number of ADC steps, in under 0.1% of the outputs. Times come from CUDA events with the L2 cache
+   whole number of ADC steps, in under 0.1% of the outputs.
+   ``cim_mac_tiled`` (As in 128..1024, Cc 64, gamma0 0.08, gains from
+   ``variation.grid_gain`` at sigma 0.05, seed 0) takes the WL values in the
+   physical order that ``chip.place_layer`` gives them and must give
+   bit-identical int32 codes. Times come from CUDA events with the L2 cache
    flushed before every launch; ``bound_ms`` is the larger of bytes over
    3.35 TB/s and f32 operations over 67 TFLOP/s (H100 SXM data sheet).
-4. The main path: CF-KAN-1 from ``init(seed=0)``, 1024 synthetic users,
-   Phase-A stats on two batches, one deploy each for ``fused``, ``cim``
-   uniform and ``cim`` KAN-SAM (As 256), and the users served in batches of
-   256 through ``kan.apply``. The kernels' launch counts are zeroed just
-   before and read just after; each must be > 0.
+4. The main path, CF-KAN-1 from ``init(seed=0)`` and 1024 synthetic users
+   served in batches of 256 through ``kan.apply``, in two runs, each with
+   the launch counts zeroed just before and read just after:
+   (a) Phase-A stats on two batches and one deploy each for ``fused``,
+   ``cim`` uniform and ``cim`` KAN-SAM (As 256): ``kan_fused`` and
+   ``cim_mac`` must be launched; (b) ``kan.deploy`` to ``cim_tiled``
+   uniform and KAN-SAM (As 256, Cc 64, gamma0 0.08, sigma 0.05) from the
+   same stats, with the chip report: ``cim_mac_tiled`` must be launched.
 5. A small-input reference: a narrow CF-KAN served layer by layer on the
    card and on the CPU (plain versions) from one artifact and one input.
+6. Fig. 18 on the kernel path: one 64 -> 64 KAN layer (G=8, batch 128),
+   gamma0 0.2, sigma 0.05, chip seeds 0-2, As 128..1024, uniform and
+   KAN-SAM mapping: the uniform error against ``lut`` must grow with As and
+   KAN-SAM must be below uniform at As 1024. One As-1024 cell runs once more
+   with a generator, through the noisy plain readout, on the card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,9 +58,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import cf_kan_1  # noqa: E402
-from repro_torch.core import kan, quant  # noqa: E402
+from repro_torch.core import kan, kan_sam, quant  # noqa: E402
 from repro_torch.data import cf_synth  # noqa: E402
-from repro_torch.hw import cim  # noqa: E402
+from repro_torch.hw import chip, cim, tiles, variation  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import cf_kan  # noqa: E402
 
@@ -58,6 +70,7 @@ BATCH, N_USERS = 256, 1024
 ARRAY_SIZES = (128, 256, 512, 1024)
 SERVE_AS = 256
 GAMMA0 = 0.08
+TILE_COLS, SIGMA = 64, 0.05   # cim_tiled: columns per tile, cell variation
 ORDER_REL = 1e-6          # summation-order bound, relative to sum |terms|
 CIM_ATOL, CIM_RTOL = 2e-3, 1e-4
 CIM_MAX_STEP_SHARE = 1e-3
@@ -67,7 +80,14 @@ SOURCES = {
                   "src/repro/kernels/kan_fused.py:99"),
     "cim_mac": ("src/repro_torch/kernels/csrc/cim_mac.cu",
                 "src/repro/kernels/cim_mac.py:148"),
+    "cim_mac_tiled": ("src/repro_torch/kernels/csrc/cim_mac_tiled.cu",
+                      "src/repro/kernels/cim_mac.py:111"),
 }
+# Fig. 18 phase: the JAX package's kernel-path means (uniform, KAN-SAM) on
+# its own random weights and draws, printed for orientation only
+FIG18_GAMMA0, FIG18_SEEDS = 0.2, (0, 1, 2)
+FIG18_JAX = {128: (0.1330, 0.0759), 256: (0.2382, 0.1144),
+             512: (0.4176, 0.1950), 1024: (0.6455, 0.2993)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -189,6 +209,57 @@ def check_cim_mac(timer, label, v, w, array_size):
     return row
 
 
+def chip_cfg(array_size, gamma0=GAMMA0, seed=0):
+    return chip.ChipConfig(
+        tile=tiles.TileConfig(array_size=array_size, tile_cols=TILE_COLS,
+                              gamma0=gamma0),
+        variation=variation.VariationConfig(sigma=SIGMA, seed=seed))
+
+
+def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size):
+    """wl: WL values [B, R] in logical order; codes: the layer's [I, S, O]
+    int8 codes, placed (uniform mapping) as the cim_tiled deploy places
+    them, so the kernel sees the main path's physical-order inputs."""
+    ccfg = chip_cfg(array_size)
+    tiled = chip.place_layer(codes, None, ccfg, layer_uid=layer_uid)
+    v = torch.where(tiled.valid, wl[:, tiled.logical_of_phys.long()], 0.0)
+    w, g = tiled.w_phys, tiled.gain
+    tile = ccfg.tile
+    att = tiles.slot_attenuation(v.shape[1], tile, v.device)
+    kw = dict(array_size=array_size, adc_bits=tile.adc_bits,
+              in_scale=tile.adc_in_scale)
+    got = ops.cim_mac_tiled(v, w, att, gain=g, **kw)
+    want = ref.cim_mac_tiled_ref(v, w, g, att, array_size, tile.adc_bits,
+                                 tile.adc_in_scale)
+    n_off = int((got != want).sum())
+    check(n_off == 0, f"cim_mac_tiled {label}: {n_off} codes differ from "
+          "the plain version")
+    b, r = v.shape
+    c = w.shape[1]
+    mag = w.to(torch.int32).abs()
+    popcount = sum(((mag >> k) & 1) for k in range(8)).sum(dim=1)   # [R]
+    nonzero = (w != 0).sum(dim=1)                                   # [R]
+    live = ((v * att) != 0).sum(dim=0)                              # [R]
+    # per live (b, r): one add per set code bit and one gain multiply per
+    # nonzero cell; the ADC's divide, round, shift and add per (b, tile, c,
+    # bit); v * atten once per (b, r)
+    per_row = (popcount + nonzero).to(torch.float64)
+    flops = (float((live.to(torch.float64) * per_row).sum())
+             + 4.0 * 8 * b * (r // array_size) * c + b * r)
+    n_bytes = (v.numel() * 4 + w.numel() + g.numel() * 4 + att.numel() * 4
+               + b * c * 4)
+    row = dict(shape=label, B=b, R=r, C=c, array_size=array_size,
+               max_abs_err=float((got - want).abs().max()), codes_differing=0,
+               ms=timer.ms(lambda: ops.cim_mac_tiled(v, w, att, gain=g, **kw),
+                           reps=10),
+               plain_ms=timer.ms(lambda: ref.cim_mac_tiled_ref(
+                   v, w, g, att, array_size, tile.adc_bits,
+                   tile.adc_in_scale), reps=3, warmup=1),
+               library_ms=None)
+    row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
+    return row
+
+
 # --- phase 4: the main path -------------------------------------------------
 
 def enc_only(deployed):
@@ -233,13 +304,25 @@ def small_reference(dev):
         params, [torch.from_numpy(ds.observed[:64]),
                  torch.from_numpy(ds.observed[64:128])], cfg)
     ccfg = cim.CIMConfig(array_size=64, gamma0=GAMMA0)
-    variants = {"fused": (dict(), (2e-5, 1e-5)),
-                "cim": (dict(cim_cfg=ccfg), (CIM_ATOL, CIM_RTOL)),
-                "cim_sam": (dict(cim_cfg=ccfg, use_sam=True, stats=stats),
-                            (CIM_ATOL, CIM_RTOL))}
+    tcfg = chip.ChipConfig(
+        tile=tiles.TileConfig(array_size=64, tile_cols=16, gamma0=GAMMA0),
+        variation=variation.VariationConfig(sigma=SIGMA, seed=0))
+    spec = cfg.kan_spec
+    variants = {
+        "fused": (lambda: cf_kan.deploy(params, cfg), (2e-5, 1e-5)),
+        "cim": (lambda: cf_kan.deploy(params, cfg, cim_cfg=ccfg),
+                (CIM_ATOL, CIM_RTOL)),
+        "cim_sam": (lambda: cf_kan.deploy(params, cfg, cim_cfg=ccfg,
+                                          use_sam=True, stats=stats),
+                    (CIM_ATOL, CIM_RTOL)),
+        "cim_tiled": (lambda: kan.deploy(params, spec.with_backend(
+            "cim_tiled", cim=tcfg)), (2e-5, 1e-5)),
+        "cim_tiled_sam": (lambda: kan.deploy(params, spec.with_backend(
+            "cim_tiled", cim=tcfg, use_sam=True), stats=stats),
+            (2e-5, 1e-5))}
     worst = {}
-    for name, (kw, (atol, rtol)) in variants.items():
-        dep = cf_kan.deploy(params, cfg, **kw)
+    for name, (make, (atol, rtol)) in variants.items():
+        dep = make()
         x = torch.from_numpy(ds.observed[128:])
         worst[name] = 0.0
         for i, layer in enumerate(dep.layers):
@@ -262,6 +345,58 @@ def small_reference(dev):
             worst[name] = max(worst[name], float(err.max()))
             x = want
     return worst
+
+
+# --- phase 6: Fig. 18 on the kernel path ------------------------------------
+
+def fig18(dev):
+    """Relative error of the chip against ``lut`` over As and chip seeds,
+    uniform and KAN-SAM (the JAX package's bench_chip setting, rebuilt from
+    the port's own generator)."""
+    spec = kan.KANSpec.single(64, 64, quant.ASPConfig(grid_size=8),
+                              base_activation="")
+    gen = torch.Generator().manual_seed(0)
+    params = kan.init(gen, spec, device=dev)
+    x = torch.clamp(torch.randn((128, 64), generator=gen) * 0.35, -0.999,
+                    0.999).to(dev)
+    xs = torch.clamp(torch.randn((512, 64), generator=gen) * 0.35, -0.999,
+                     0.999).to(dev)
+    asp = spec.asp[0]
+    stats = kan_sam.update_stats(kan_sam.init_stats(64, asp, dev),
+                                 kan.bound_input(xs, asp), asp)
+    y_ideal = kan.apply(kan.deploy(params, spec.with_backend("lut")), x)
+    denom = float(torch.linalg.norm(y_ideal))
+
+    def make_eval(a, sam, generator=None):
+        def eval_seed(seed):
+            dep = kan.deploy(params, spec.with_backend(
+                "cim_tiled", cim=chip_cfg(a, FIG18_GAMMA0, seed),
+                use_sam=sam), stats=stats if sam else None)
+            y = kan.apply(dep, x, generator=generator)
+            check(bool(torch.isfinite(y).all()), "Fig. 18: not finite")
+            return float(torch.linalg.norm(y - y_ideal)) / denom
+        return eval_seed
+
+    rows = {sam: {r["As"]: r for r in variation.sweep_array_size(
+        lambda a, sam=sam: make_eval(a, sam), ARRAY_SIZES, FIG18_SEEDS)}
+        for sam in (False, True)}
+    uni = [rows[False][a]["mean"] for a in ARRAY_SIZES]
+    top = ARRAY_SIZES[-1]
+    noisy = make_eval(top, False, torch.Generator(device=dev).manual_seed(
+        10_000))(0)
+    for a in ARRAY_SIZES:
+        print(f"Fig. 18 As={a}: uniform {rows[False][a]['mean']:.4f} "
+              f"(ci95 {rows[False][a]['ci95']:.4f}), KAN-SAM "
+              f"{rows[True][a]['mean']:.4f} (ci95 {rows[True][a]['ci95']:.4f})"
+              f"; JAX package {FIG18_JAX[a][0]:.4f} / {FIG18_JAX[a][1]:.4f}")
+    print(f"Fig. 18 As={top} uniform seed 0 with readout noise: "
+          f"{noisy:.4f} (without: {rows[False][top]['values'][0]:.4f})")
+    check(all(lo < hi for lo, hi in zip(uni, uni[1:])),
+          f"Fig. 18: uniform error does not grow with As: {uni}")
+    check(rows[True][top]["mean"] < rows[False][top]["mean"],
+          f"Fig. 18: KAN-SAM does not recover at As={top}")
+    check(np.isfinite(noisy), "Fig. 18: noisy readout not finite")
+    return rows
 
 
 def main() -> int:
@@ -309,15 +444,17 @@ def main() -> int:
     xd = kan.bound_input(h, asp_d)
     rows = {"kan_fused": [check_kan_fused(timer, "enc", xe, enc, asp_e),
                           check_kan_fused(timer, "dec", xd, dec, asp_d)],
-            "cim_mac": []}
-    for label, x, layer, asp in (("enc", xe, enc, asp_e),
-                                 ("dec", xd, dec, asp_d)):
+            "cim_mac": [], "cim_mac_tiled": []}
+    for uid, (label, x, layer, asp) in enumerate((("enc", xe, enc, asp_e),
+                                                  ("dec", xd, dec, asp_d))):
         wl = cim.quantize_wl(quant.quantized_basis(x, layer.hemi, asp)
                              .reshape(x.shape[0], -1), 8)
         w = layer.codes.reshape(wl.shape[1], -1)
         for a in ARRAY_SIZES:
             rows["cim_mac"].append(
                 check_cim_mac(timer, f"{label} As={a}", wl, w, a))
+            rows["cim_mac_tiled"].append(check_cim_mac_tiled(
+                timer, f"{label} As={a}", wl, layer.codes, uid, a))
     for kname, krows in rows.items():
         for r in krows:
             print(f"kernel {kname} {r['shape']}: max|err| "
@@ -325,7 +462,8 @@ def main() -> int:
                   f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
                   f"{r['bound_ms']:.4f} by {r['bound_by']})")
 
-    # 4. the main path, with the launch counts zeroed just before
+    # 4a. the main path through fused and cim, with the launch counts
+    # zeroed just before and read just after
     ccfg = cim.CIMConfig(array_size=SERVE_AS, gamma0=GAMMA0)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -338,11 +476,38 @@ def main() -> int:
     torch.cuda.synchronize()
     deploy_s = time.perf_counter() - t0
     served = {k: serve(d, x_all) for k, d in deployed.items()}
-    launches = ops.launch_counts()
-    print(f"main path: stats + 3 deploys {deploy_s:.2f} s; launches "
-          f"{launches}")
+    launches_a = ops.launch_counts()
+    print(f"main path (a): stats + 3 deploys {deploy_s:.2f} s; launches "
+          f"{launches_a}")
+
+    # 4b. the main path through cim_tiled, uniform and KAN-SAM, from the
+    # same stats, with the launch counts zeroed just before and read after
+    tcfg = chip_cfg(SERVE_AS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tiled = {"cim_tiled_uniform": kan.deploy(params, cfg.kan_spec.with_backend(
+                 "cim_tiled", cim=tcfg)),
+             "cim_tiled_sam": kan.deploy(params, cfg.kan_spec.with_backend(
+                 "cim_tiled", cim=tcfg, use_sam=True), stats=stats)}
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    served.update({k: serve(d, x_all) for k, d in tiled.items()})
+    launches_b = ops.launch_counts()
+    print(f"main path (b): 2 deploys {deploy_s:.2f} s; launches "
+          f"{launches_b}")
+    launches = {"kan_fused": launches_a["kan_fused"],
+                "cim_mac": launches_a["cim_mac"],
+                "cim_mac_tiled": launches_b["cim_mac_tiled"]}
     for kname in SOURCES:
         check(launches[kname] > 0, f"{kname} was not launched on the path")
+    for k, d in tiled.items():
+        rep = chip.chip_report(d)
+        print(f"chip report {k}: tiles allocated {rep['tiles_allocated']}, "
+              f"used {rep['tiles_used']}, utilization "
+              f"{rep['utilization']:.4f}, area {rep['area_mm2']:.2f} mm^2, "
+              f"layers " + ", ".join(
+                  f"{n}: grid {l['grid']} rows placed {l['rows_placed']} of "
+                  f"{l['rows']}" for n, l in rep["layers"].items()))
 
     dep_lut = cf_kan.deploy(params, cfg)
     s_lut, _ = serve(dep_lut, x_all)
@@ -364,9 +529,10 @@ def main() -> int:
           f"{float((s_fused - s_lut).abs().max()):.3g}, mean rel "
           f"{rel_err(s_fused, s_lut):.3g}, decoder-input codes differing "
           f"{flip:.3g}")
-    print(f"cim vs fused: mean rel score err uniform "
-          f"{rel_err(served['cim_uniform'][0], s_fused):.4f}, SAM "
-          f"{rel_err(served['cim_sam'][0], s_fused):.4f}")
+    for kind in ("cim", "cim_tiled"):
+        print(f"{kind} vs fused: mean rel score err uniform "
+              f"{rel_err(served[kind + '_uniform'][0], s_fused):.4f}, SAM "
+              f"{rel_err(served[kind + '_sam'][0], s_fused):.4f}")
     check(flip <= 1e-3, f"fused vs lut: {flip:.3g} decoder codes differ")
     for i, what in enumerate(("Recall@20", "NDCG@20")):
         d = abs(metrics["fused"][i] - metrics["lut"][i])
@@ -375,6 +541,9 @@ def main() -> int:
     # 5. small-input reference (card against CPU)
     worst = small_reference(dev)
     print(f"small reference, card vs CPU max|err|: {worst}")
+
+    # 6. Fig. 18 on the kernel path
+    fig18(dev)
 
     # result lines
     kernels = []

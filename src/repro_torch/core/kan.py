@@ -9,11 +9,16 @@
     - ``fused`` : the hand-written CUDA kernel ``kernels/csrc/kan_fused.cu``
                   (quantise → SH-LUT → K+1-tap contraction on chip),
     - ``cim``   : bit-sliced RRAM crossbar simulator (``hw.cim``, kernel
-                  ``kernels/csrc/cim_mac.cu``) with optional KAN-SAM.
-  (``lut_int8`` and ``cim_tiled`` are not ported yet.)
-* **deploy(params, spec, stats=None) → DeployedKAN** — done ONCE: int8
-  codes + per-output-channel scales, the SH-LUT, the bit-slice image and
-  the KAN-SAM row order/attenuation.
+                  ``kernels/csrc/cim_mac.cu``) with optional KAN-SAM,
+    - ``cim_tiled``: multi-tile ACIM chip simulator (``hw.tiles``/``hw.chip``,
+                  kernel ``kernels/csrc/cim_mac_tiled.cu``) — per-tile IR
+                  drop/ADC/variation, int32 digital partial-sum reduction,
+                  empty-row compaction + within-tile KAN-SAM (``spec.cim``
+                  holds a ``hw.chip.ChipConfig``).
+  (``lut_int8`` is not ported yet.)
+* **deploy(params, spec, stats=None, chip_uid=0) → DeployedKAN** — done
+  ONCE: int8 codes + per-output-channel scales, the SH-LUT, the bit-slice
+  image and the KAN-SAM row order/attenuation, or the chip placement.
 * **apply(deployed, x) → y** — run-time evaluation against the frozen
   artifact; it never requantises.
 * **train_apply(params, x, spec)** — the training path's forward over float
@@ -64,7 +69,8 @@ class KANSpec:
     bound_input: bool = True        # tanh-bound inputs into the knot range
     dtype: Any = torch.float32
     layer_names: Tuple[str, ...] = ()
-    # cim backend only: a hw.cim.CIMConfig + the KAN-SAM mapping toggle
+    # cim/cim_tiled backends only: crossbar config + KAN-SAM mapping toggle
+    # (cim takes a hw.cim.CIMConfig, cim_tiled a hw.chip.ChipConfig)
     cim: Any = None
     use_sam: bool = False
 
@@ -190,6 +196,7 @@ class DeployedLayer:
     atten: Optional[torch.Tensor] = None    # [R] f32 row attenuation (cim)
     row_order: Optional[torch.Tensor] = None  # [R] int32 phys-of-logical
     slices: Optional[torch.Tensor] = None   # [I, S, O, 8] uint8 (cim)
+    tiles: Optional[Any] = None             # hw.chip.TiledLayer (cim_tiled)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +218,13 @@ class KANBackend:
     name = "?"
 
     def deploy_extras(self, codes: torch.Tensor, scale: torch.Tensor,
-                      lspec: KANLayerShape, spec: KANSpec, stats
-                      ) -> Dict[str, torch.Tensor]:
-        """Backend-specific artifact fields (keys of DeployedLayer)."""
-        del codes, scale, lspec, spec, stats
+                      lspec: KANLayerShape, spec: KANSpec, stats, *,
+                      layer_idx: int = 0) -> Dict[str, Any]:
+        """Backend-specific artifact fields (keys of DeployedLayer).
+        ``layer_idx`` is a chip-unique layer id (``chip_uid * n_layers +
+        layer``): cim_tiled keys its per-tile variation draw by it, so no
+        two physical layers share one."""
+        del codes, scale, lspec, spec, stats, layer_idx
         return {}
 
     def run(self, layer: DeployedLayer, lspec: KANLayerShape, spec: KANSpec,
@@ -311,7 +321,8 @@ class CimBackend(KANBackend):
         from repro_torch.hw import cim as cim_lib
         return spec.cim if spec.cim is not None else cim_lib.CIMConfig()
 
-    def deploy_extras(self, codes, scale, lspec, spec, stats):
+    def deploy_extras(self, codes, scale, lspec, spec, stats, *,
+                      layer_idx=0):
         from repro_torch.core import kan_sam
         from repro_torch.hw import cim as cim_lib
         ccfg = self._cim_cfg(spec)
@@ -337,6 +348,54 @@ class CimBackend(KANBackend):
         y = cim_lib.cim_forward(v, w, self._cim_cfg(spec),
                                 atten_of_logical=layer.atten,
                                 generator=generator)
+        return y * layer.scale.reshape(-1)
+
+
+@register_backend("cim_tiled")
+class CimTiledBackend(KANBackend):
+    """Multi-tile ACIM chip simulator (hw.tiles / hw.chip).
+
+    Deploy runs the chip mapper: empty-row compaction across tiles,
+    within-tile KAN-SAM placement (``spec.use_sam`` + Phase-A stats), the
+    int8 programming image and the deterministic per-``(seed, layer, tile)``
+    process-variation gains, all frozen into the artifact's ``TiledLayer``.
+    Run gathers word lines into physical order and reduces per-tile ADC
+    readouts through the int32 adder tree (the kernel without a generator).
+    """
+
+    def _chip_cfg(self, spec):
+        from repro_torch.hw import chip as chip_lib
+        if spec.cim is None:
+            return chip_lib.ChipConfig()
+        if not isinstance(spec.cim, chip_lib.ChipConfig):
+            raise TypeError(
+                "the cim_tiled backend takes spec.cim = hw.chip.ChipConfig "
+                f"(got {type(spec.cim).__name__}); wrap a TileConfig in "
+                "ChipConfig(tile=...)")
+        return spec.cim
+
+    def deploy_extras(self, codes, scale, lspec, spec, stats, *,
+                      layer_idx=0):
+        from repro_torch.core import kan_sam
+        from repro_torch.hw import chip as chip_lib
+        crit = None
+        if spec.use_sam:
+            if stats is None:
+                raise ValueError(
+                    "KAN-SAM deploy needs Phase-A BasisStats: pass "
+                    "deploy(params, spec, stats=...) with one entry per "
+                    "layer name")
+            crit = kan_sam.criticality(stats, codes).reshape(-1)
+        tiled = chip_lib.place_layer(codes, crit, self._chip_cfg(spec),
+                                     layer_uid=layer_idx)
+        return {"tiles": tiled, "row_order": tiled.phys_of_logical}
+
+    def run(self, layer, lspec, spec, x, generator=None):
+        from repro_torch.hw import chip as chip_lib
+        basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+        v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
+        y = chip_lib.chip_forward(v, layer.tiles, self._chip_cfg(spec),
+                                  lspec.out_dim, generator=generator)
         return y * layer.scale.reshape(-1)
 
 
@@ -372,12 +431,18 @@ def init(seed: Union[int, torch.Generator], spec: KANSpec, *, device=None):
             for i, name in enumerate(names)}
 
 
-def deploy(params, spec: KANSpec, stats=None) -> DeployedKAN:
+def deploy(params, spec: KANSpec, stats=None, *, chip_uid: int = 0
+           ) -> DeployedKAN:
     """Phase 1 — build the artifact ONCE: int8 codes + per-output-channel
     scales (``quantize_coeffs(..., axis=(0, 1))``), the SH-LUT, and the
     backend's extras (cim: bit slices + KAN-SAM row order/attenuation from
-    Phase-A ``stats``). The artifact lives on the params' device. An
-    already-deployed artifact passes through unchanged."""
+    Phase-A ``stats``; cim_tiled: the chip placement and variation gains).
+    The artifact lives on the params' device. An already-deployed artifact
+    passes through unchanged.
+
+    ``chip_uid`` distinguishes KAN stacks deployed onto one simulated chip:
+    cim_tiled keys its variation draws by ``chip_uid * n_layers + layer``,
+    so distinct physical layers draw distinct per-cell variation."""
     if isinstance(params, DeployedKAN):
         return params
     backend = get_backend(spec.backend)
@@ -389,11 +454,13 @@ def deploy(params, spec: KANSpec, stats=None) -> DeployedKAN:
         codes, scale = quant.quantize_coeffs(coeffs, lspec.asp, axis=(0, 1))
         hemi = quant.hemi_for(lspec.asp, coeffs.device)
         extras = backend.deploy_extras(codes, scale, lspec, spec,
-                                       _layer_stats(stats, spec, i))
+                                       _layer_stats(stats, spec, i),
+                                       layer_idx=chip_uid * spec.n_layers + i)
         layers.append(DeployedLayer(
             codes=codes, scale=scale.to(torch.float32), hemi=hemi,
             w_base=lp.get("w_base"), atten=extras.get("atten"),
-            row_order=extras.get("row_order"), slices=extras.get("slices")))
+            row_order=extras.get("row_order"), slices=extras.get("slices"),
+            tiles=extras.get("tiles")))
     return DeployedKAN(tuple(layers), spec)
 
 
@@ -402,7 +469,7 @@ def apply(deployed: DeployedKAN, x: torch.Tensor, *,
           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Phase 2 — run-time evaluation against the frozen artifact, for every
     backend. Performs no coefficient quantisation and builds no LUTs.
-    ``generator`` draws the cim backend's readout noise."""
+    ``generator`` draws the cim and cim_tiled backends' readout noise."""
     spec = deployed.spec
     backend = get_backend(spec.backend)
     for i, layer in enumerate(deployed.layers):
@@ -451,7 +518,8 @@ def apply_any(params_or_deployed, x: torch.Tensor, spec: KANSpec
 
 _DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
            np.dtype(np.int32): torch.int32,
-           np.dtype(np.float32): torch.float32}
+           np.dtype(np.float32): torch.float32,
+           np.dtype(np.bool_): torch.bool}
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -474,12 +542,19 @@ def deployed_from_numpy(layers: Sequence[Mapping], spec: KANSpec,
                         device=None) -> DeployedKAN:
     """A deployed artifact from per-layer mappings of DeployedLayer field
     names to numpy arrays (or None) — e.g. a JAX ``DeployedKAN``'s layers —
-    so both packages can serve one identical artifact."""
+    so both packages can serve one identical artifact. A ``tiles`` entry is
+    itself a mapping of ``hw.chip.TiledLayer`` field names to arrays (its
+    gains included)."""
+    from repro_torch.hw import chip as chip_lib
     device = resolve_device(device)
     fields = [f.name for f in dataclasses.fields(DeployedLayer)]
     out = []
     for layer in layers:
         kw = {f: _to_tensor(layer[f], device) for f in fields
-              if layer.get(f) is not None}
+              if f != "tiles" and layer.get(f) is not None}
+        if layer.get("tiles") is not None:
+            kw["tiles"] = chip_lib.TiledLayer(**{
+                k: None if a is None else _to_tensor(a, device)
+                for k, a in layer["tiles"].items()})
         out.append(DeployedLayer(**kw))
     return DeployedKAN(tuple(out), spec)

@@ -34,6 +34,8 @@ SIGNATURES = {
                          _F, _F, _P),
     # v, w, atten, out, B, R, C, array_size, lsb, stream
     "cim_mac_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # v, w, gain (or null), atten, out, B, R, C, array_size, lsb, stream
+    "cim_mac_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -23,15 +23,18 @@ from repro_torch.kernels import kan_fused as _kf
 from repro_torch.kernels import ref
 
 
+_KERNELS = {"kan_fused": _kf.kan_fused, "cim_mac": _cim.cim_mac,
+            "cim_mac_tiled": _cim.cim_mac_tiled}
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel."""
-    return {"kan_fused": _kf.kan_fused.launches,
-            "cim_mac": _cim.cim_mac.launches}
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _kf.kan_fused.launches = 0
-    _cim.cim_mac.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0
 
 
 def _same_device(what: str, ref_t: torch.Tensor, **tensors) -> None:
@@ -101,4 +104,44 @@ def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,
         # the kernel receives rounded to f32
         lsb = float(array_size) * in_scale / float(2 ** adc_bits - 1)
         y = _cim.cim_mac(vf, w_codes, att, array_size=array_size, lsb=lsb)
+    return y.reshape(lead + (c,))
+
+
+def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
+                  row_atten: torch.Tensor, *,
+                  gain: Optional[torch.Tensor] = None, array_size: int,
+                  adc_bits: int = 8, in_scale: float = 1.0) -> torch.Tensor:
+    """Multi-tile ACIM MAC (``hw.tiles``). v: [..., R] float PHYSICAL-order
+    WL values, w_codes: [R, C] int8 contiguous, row_atten: [R] float, gain:
+    optional [R, C] per-cell conductance multipliers (None = ideal cells).
+    R must already be a tile multiple (the chip mapper pads rows). Returns
+    [..., C] int32: the per-tile readout codes reduced over row tiles (the
+    caller scales by the LSB)."""
+    lead, r, c = v.shape[:-1], v.shape[-1], w_codes.shape[-1]
+    if r % array_size:
+        raise ValueError(f"R={r} not a multiple of array_size={array_size} "
+                         "(the chip mapper pads rows to whole tiles)")
+    extra = {} if gain is None else {"gain": gain}
+    _same_device("cim_mac_tiled", v, w_codes=w_codes, row_atten=row_atten,
+                 **extra)
+    if w_codes.dtype != torch.int8 or w_codes.shape != (r, c):
+        raise ValueError(f"w_codes must be int8 [{r}, C], got "
+                         f"{w_codes.dtype} {tuple(w_codes.shape)}")
+    if not w_codes.is_contiguous():
+        raise ValueError("w_codes must be contiguous")
+    if row_atten.shape != (r,):
+        raise ValueError(f"row_atten must be [{r}], got "
+                         f"{tuple(row_atten.shape)}")
+    if gain is not None and gain.shape != (r, c):
+        raise ValueError(f"gain must be [{r}, {c}], got {tuple(gain.shape)}")
+    vf = v.reshape(-1, r).to(torch.float32).contiguous()
+    att = row_atten.to(torch.float32).contiguous()
+    g = None if gain is None else gain.to(torch.float32).contiguous()
+    if v.device.type == "cpu":
+        y = ref.cim_mac_tiled_ref(vf, w_codes, g, att, array_size, adc_bits,
+                                  in_scale)
+    else:
+        lsb = float(array_size) * in_scale / float(2 ** adc_bits - 1)
+        y = _cim.cim_mac_tiled(vf, w_codes, g, att, array_size=array_size,
+                               lsb=lsb)
     return y.reshape(lead + (c,))

@@ -80,6 +80,70 @@ def cim_mac_ref(v: torch.Tensor, w_codes: torch.Tensor,
     return out
 
 
+def cim_mac_tiled_codes(v: torch.Tensor, w_codes: torch.Tensor,
+                        gain: Optional[torch.Tensor],
+                        row_atten: torch.Tensor, array_size: int,
+                        adc_bits: int, in_scale: float = 1.0, *,
+                        sigma_psum: float = 0.0,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """Per-row-tile readout codes of the multi-tile ACIM MAC.
+
+    For each row tile of ``array_size`` rows and each bit k < 8:
+    ``psum_k = sum_r fl(v*atten)[b, r] * (bit_k(|w|) * sign(w) * gain)[r, c]``
+    and ``code_k = round(psum_k / lsb)`` (half to even, int32), recombined as
+    ``sum_k code_k << k``. Rows are added one at a time in row order, as the
+    CUDA kernel adds them: a different f32 order can move a psum across a .5
+    LSB boundary. ``psum = psum + term`` is kept as two roundings (the
+    product, then the sum); ``addcmul_`` may fuse them on the CPU.
+
+    ``generator`` adds pre-ADC readout noise, ``sigma_psum`` LSBs per
+    (tile, bit slice): one draw per bit slice on the generator's device.
+
+    v: [B, R] float; w_codes: [R, C] int8; gain: optional [R, C] float
+    (None = ideal cells); row_atten: [R]; R a multiple of ``array_size``.
+    Returns [B, R / array_size, C] int32.
+    """
+    b, r = v.shape
+    c = w_codes.shape[1]
+    tr = r // array_size
+    va = (v.to(torch.float32) * row_atten.to(torch.float32)[None, :]
+          ).reshape(b, tr, array_size)
+    w = w_codes.to(torch.int32)
+    mag = torch.abs(w)
+    sgn = torch.sign(w).to(torch.float32)
+    if gain is not None:
+        sgn = sgn * gain.to(torch.float32)            # exact: +-gain or 0
+    shifts = torch.arange(8, dtype=torch.int32, device=v.device)
+    wbit = ((mag[None] >> shifts[:, None, None]) & 1).to(torch.float32)
+    wbit = (wbit * sgn[None]).reshape(8, tr, array_size, c)
+
+    psum = torch.zeros((8, b, tr, c), dtype=torch.float32, device=v.device)
+    for j in range(array_size):                       # row order
+        psum = psum + va[None, :, :, j, None] * wbit[:, None, :, j, :]
+    lsb = float(array_size) * in_scale / float(2 ** adc_bits - 1)
+    if generator is not None:
+        for k in range(8):
+            noise = torch.randn(psum.shape[1:], generator=generator,
+                                device=generator.device)
+            psum[k] = psum[k] + (sigma_psum * lsb) * noise.to(v.device)
+    lsb_t = torch.full((), lsb, dtype=torch.float32, device=v.device)
+    codes = torch.round(psum / lsb_t).to(torch.int32)  # per-tile ADC readout
+    weights = (torch.ones_like(shifts) << shifts).reshape(8, 1, 1, 1)
+    return (codes * weights).sum(0, dtype=torch.int32)
+
+
+def cim_mac_tiled_ref(v: torch.Tensor, w_codes: torch.Tensor,
+                      gain: Optional[torch.Tensor], row_atten: torch.Tensor,
+                      array_size: int, adc_bits: int,
+                      in_scale: float = 1.0) -> torch.Tensor:
+    """Plain version of the multi-tile ACIM MAC: the per-tile readout codes
+    (``cim_mac_tiled_codes``) reduced over row tiles in int32, which is
+    exact in any order. Returns [B, C] int32."""
+    return cim_mac_tiled_codes(v, w_codes, gain, row_atten, array_size,
+                               adc_bits, in_scale).sum(1, dtype=torch.int32)
+
+
 def cim_mac_ideal(v: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
     """Noise-free digital MAC for degradation comparisons."""
     return v.to(torch.float32) @ w_codes.to(torch.float32)

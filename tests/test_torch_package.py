@@ -44,7 +44,12 @@ def test_imports_with_jax_and_repro_blocked():
 
 
 def test_sources_name_no_jax_or_repro():
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    """No module of the package, and not ``chip_smoke.py``, names ``jax``
+    or ``repro`` in an import."""
+    paths = [*(SRC / "repro_torch").rglob("*.py"),
+             SRC.parent / "chip_smoke.py"]
+    assert paths[-1].exists()
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):
@@ -72,8 +77,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     path = build.library_path()
     assert path.parent == tmp_path and path.name.startswith("libkernels_")
     assert path == build.library_path()
-    assert {p.name for p in build.CSRC.glob("*.cu")} == {"kan_fused.cu",
-                                                         "cim_mac.cu"}
+    assert {p.name for p in build.CSRC.glob("*.cu")} == {
+        "kan_fused.cu", "cim_mac.cu", "cim_mac_tiled.cu"}
     if build.shutil.which("nvcc") is None and not Path(
             "/usr/local/cuda/bin/nvcc").exists():
         build.load.cache_clear()
