@@ -1,5 +1,6 @@
-"""Serve CF-KAN-1 at full width on one CUDA card through the port's
-hand-written kernels, and hold every kernel against its plain version.
+"""Serve CF-KAN-1 and mamba2-1.3b at full width on one CUDA card through
+the port's hand-written kernels, and hold every kernel against its plain
+version.
 
     python3 chip_smoke.py
 
@@ -33,12 +34,44 @@ Phases (any failed check raises, and the script exits non-zero):
    uniform and KAN-SAM (As 256, Cc 64, gamma0 0.08, sigma 0.05) from the
    same stats, with the chip report: ``cim_mac_tiled`` must be launched.
 5. A small-input reference: a narrow CF-KAN served layer by layer on the
-   card and on the CPU (plain versions) from one artifact and one input.
+   card and on the CPU (plain versions) from one artifact and one input;
+   and mamba2 ``SMOKE`` at f32 from one set of weights on both: ``generate``
+   tokens identical, forward, prefill and decode logits within ``2e-4`` (the
+   JAX serving suite's bar).
 6. Fig. 18 on the kernel path: one 64 -> 64 KAN layer (G=8, batch 128),
    gamma0 0.2, sigma 0.05, chip seeds 0-2, As 128..1024, uniform and
    KAN-SAM mapping: the uniform error against ``lut`` must grow with As and
    KAN-SAM must be below uniform at As 1024. One As-1024 cell runs once more
    with a generator, through the noisy plain readout, on the card.
+
+7. ``ssd_scan`` against its plain versions (the chunked form
+   ``ref.ssd_chunked_ref`` and the sequential ``ref.ssd_ref``) on layer 0's
+   scan inputs, computed by the port from mamba2-1.3b (seed 0) and phase
+   8's prompts: T = 2048 (the prefill's shape), a ragged T = 2000, rows
+   1000..2000 from the state of rows 0..1000 (``init_state``), and the JAX
+   suite's (2, 37, 3, 8, 16) at chunk 8 on numpy inputs. y and the final
+   state are held to the JAX suite's ``atol 3e-5, rtol 1e-4`` plus
+   ``1e-6 * sum|terms|`` (the f32 sums run over up to 256 steps and 128
+   state columns in another order; ``sum|terms|`` is the scan of |x|,
+   |B|, |C|, |D| and |init|). Timed like phase 3; ``bound_ms`` counts the
+   chunked algorithm's operations on these inputs.
+8. The LM main path at full width: mamba2-1.3b ``CONFIG`` (48 layers,
+   1,343,532,032 parameters, bf16 compute, f32 parameters) initialised on
+   the card from a seeded CUDA generator, 4 prompts of 2048 tokens from
+   ``lm_synth.batch_at(vocab=50280, batch=4, seq_len=2048, seed=0)``:
+   ``decode.generate(n_new=32)``, then the same prefill and 31 decode steps
+   timed one by one, then a teacher-forced ``forward`` over each prompt and
+   its first 31 generated tokens (T = 2079). Launch counts are zeroed just
+   before ``generate`` and before ``forward`` and read just after each:
+   ``ssd_scan`` must run 48 times in each. Then an f32 control: the same
+   weights and tokens at f32 compute, where prefill and decode logits must
+   agree with ``forward``'s within ``F32_PATH_BAR`` and each step's argmax
+   must be ``forward``'s wherever its top-1 logit leads its top-2 by more
+   than that bar. At bf16 compute the residual stream is rounded after each
+   layer and decode convolves a conv history rounded to bf16 where forward
+   convolves f32 (both as in JAX), so the bf16 paths are held, in the same
+   two checks, to the reach of bf16 rounding on these weights and tokens:
+   the largest distance between the bf16 and the f32 forward.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -57,12 +90,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import cf_kan_1  # noqa: E402
+from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
 from repro_torch.core import kan, kan_sam, quant  # noqa: E402
-from repro_torch.data import cf_synth  # noqa: E402
+from repro_torch.data import cf_synth, lm_synth  # noqa: E402
 from repro_torch.hw import chip, cim, tiles, variation  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.models import cf_kan  # noqa: E402
+from repro_torch.models import cf_kan, layers  # noqa: E402
+from repro_torch.models import ssd as ssd_lib  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serve import decode  # noqa: E402
 
 PEAK_F32 = 67e12          # FLOP/s, H100 SXM, outside the tensor cores
 PEAK_BYTES = 3.35e12      # B/s, H100 SXM HBM3
@@ -82,7 +118,19 @@ SOURCES = {
                 "src/repro/kernels/cim_mac.py:148"),
     "cim_mac_tiled": ("src/repro_torch/kernels/csrc/cim_mac_tiled.cu",
                       "src/repro/kernels/cim_mac.py:111"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:77"),
 }
+# the LM main path: mamba2-1.3b at full width
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+MAMBA2_PARAMS = 1_343_532_032
+SSD_ATOL, SSD_RTOL = 3e-5, 1e-4   # the JAX suite's ssd bar
+LM_SMALL_BAR = 2e-4               # the JAX serving suite's bar (f32)
+# f32 compute: prefill/decode (the step recurrence) against forward (the
+# chunked scan) differ by f32 sums in another order, compounded over 48
+# layers and T up to 2079 (the JAX serving suite's 2e-4 was set at 3
+# layers and 24 tokens)
+F32_PATH_BAR = 1e-3
 # Fig. 18 phase: the JAX package's kernel-path means (uniform, KAN-SAM) on
 # its own random weights and draws, printed for orientation only
 FIG18_GAMMA0, FIG18_SEEDS = 0.2, (0, 1, 2)
@@ -399,6 +447,255 @@ def fig18(dev):
     return rows
 
 
+def small_lm_reference(dev):
+    """mamba2 SMOKE at f32 from one set of weights on the CPU (plain
+    versions) and on the card (the kernel): forward, prefill, decode and
+    generate. Returns the worst logit difference."""
+    cfg = mamba2_1p3b.SMOKE.model
+    p_cpu = tfm.init_model(0, cfg, device="cpu")
+    p_dev = tfm.tree_map(lambda t: t.to(dev), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)))          # T = 40: chunk 16 is ragged
+    worst = 0.0
+
+    def hold(got, want, what):
+        nonlocal worst
+        err = float((got.cpu() - want).abs().max())
+        worst = max(worst, err)
+        check(err <= LM_SMALL_BAR, f"small LM reference {what}: card and "
+              f"CPU differ by {err:.3g} > {LM_SMALL_BAR}")
+
+    hold(tfm.forward(p_dev, cfg, {"tokens": toks.to(dev)})[0],
+         tfm.forward(p_cpu, cfg, {"tokens": toks})[0], "forward")
+    s0 = 36
+    lc, cc = decode.prefill(p_cpu, cfg, {"tokens": toks[:, :s0]}, 40,
+                            last_only=True)
+    ld, cd = decode.prefill(p_dev, cfg, {"tokens": toks[:, :s0].to(dev)}, 40,
+                            last_only=True)
+    hold(ld, lc, "prefill")
+    for i in range(s0, 40):
+        lc, cc = decode.decode_step(p_cpu, cc, toks[:, i:i + 1], i, cfg)
+        ld, cd = decode.decode_step(p_dev, cd, toks[:, i:i + 1].to(dev), i,
+                                    cfg)
+        hold(ld, lc, f"decode step {i}")
+    g_cpu = decode.generate(p_cpu, cfg, toks[:, :16], n_new=8)
+    g_dev = decode.generate(p_dev, cfg, toks[:, :16].to(dev), n_new=8)
+    check(torch.equal(g_dev.cpu(), g_cpu), "small LM reference: generate "
+          f"tokens differ: {g_dev.tolist()} vs {g_cpu.tolist()}")
+    return worst
+
+
+# --- phase 7: ssd_scan against its plain versions ----------------------------
+
+def layer0_scan_inputs(params, cfg, tokens):
+    """Layer 0's scan inputs, as the port's prefill computes them."""
+    x = tfm.embed_inputs(params, cfg, {"tokens": tokens})
+    p0 = tfm.layer_of(params["stages"][0], 0)["l0"]
+    xn = layers.NORM_APPLY[cfg.norm](p0["mixer_norm"], x)
+    s = ssd_lib.ssd_inputs(p0["ssd"], xn, cfg.ssd_cfg)
+    return {k: s[k] for k in ("x", "dt", "a", "B", "C", "d_skip")}
+
+
+def ssd_work(x_shape, n, chunk, init):
+    """(f32 operations, bytes) of the chunked SSD on these shapes: C B^T
+    once per (b, chunk), lower triangle; per head the masked decay and the
+    intra-chunk product over (i, j <= i), the carry-in readout and the
+    state update over (t, p, n); the elementwise terms per (t, h, p)."""
+    b, t, h, p = x_shape
+    tri = sum(l * (l + 1) // 2 for l in
+              (min(chunk, t - c0) for c0 in range(0, t, chunk)))
+    flops = (2.0 * b * tri * n                   # C B^T
+             + b * h * tri * (3 + 2 * p)          # exp, L * scores, product
+             + 4.0 * b * t * h * p * n            # carry-in, state update
+             + 6.0 * b * t * h * p + 3.0 * b * t * h)
+    n_bytes = 4 * (2 * b * t * h * p + b * t * h + 2 * b * t * n + 2 * h
+                   + b * h * p * n * (2 if init else 1))
+    return flops, n_bytes
+
+
+def check_ssd_scan(timer, label, s, chunk, init=None, on_path=False):
+    """Kernel against the chunked plain form and the sequential oracle."""
+    args = [s[k] for k in ("x", "dt", "a", "B", "C", "d_skip")]
+    got_y, got_s = ops.ssd_state(*args, chunk=chunk, init_state=init)
+    want_y, want_s = ref.ssd_chunked_ref(*args, chunk=chunk, init_state=init)
+    seq_y, seq_s = ref.ssd_ref(*args, init)
+    mass_y, mass_s = ref.ssd_chunked_ref(
+        s["x"].abs(), s["dt"], s["a"], s["B"].abs(), s["C"].abs(),
+        s["d_skip"].abs(), chunk=chunk,
+        init_state=None if init is None else init.abs())
+    row = dict(shape=label, T=s["x"].shape[1], chunk=chunk,
+               init_state=init is not None, on_path=on_path)
+    for name, got, want, mass in (
+            ("y", got_y, want_y, mass_y), ("state", got_s, want_s, mass_s)):
+        check(bool(torch.isfinite(got).all()), f"ssd_scan {label}: {name} "
+              "not finite")
+        for oname, ref_t in (("plain", want), ("ssd_ref", seq_y if name ==
+                                                "y" else seq_s)):
+            err = (got - ref_t).abs()
+            jax_bar = SSD_ATOL + SSD_RTOL * ref_t.abs()
+            tol = jax_bar + ORDER_REL * mass
+            worst = float((err / tol).max())
+            check(worst <= 1.0, f"ssd_scan {label}: {name} vs {oname}: "
+                  f"max |err| / tolerance {worst:.3g} (max |err| "
+                  f"{float(err.max()):.3g})")
+            row[f"{name}_vs_{oname}_max_abs_err"] = float(err.max())
+            row[f"{name}_vs_{oname}_over_jax_bar"] = float(
+                (err > jax_bar).float().mean())
+    row["max_abs_err"] = max(row["y_vs_plain_max_abs_err"],
+                             row["state_vs_plain_max_abs_err"])
+    row["ms"] = timer.ms(lambda: ops.ssd_state(*args, chunk=chunk,
+                                               init_state=init), reps=10)
+    row["plain_ms"] = timer.ms(lambda: ref.ssd_chunked_ref(
+        *args, chunk=chunk, init_state=init), reps=3, warmup=1)
+    row["library_ms"] = None
+    flops, n_bytes = ssd_work(tuple(s["x"].shape), s["B"].shape[-1], chunk,
+                              init is not None)
+    row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
+    return row
+
+
+def ssd_phase(timer, params, cfg, prompt):
+    """Phase 7: the rows of the kernel table for ``ssd_scan``."""
+    chunk = cfg.ssd_cfg.chunk
+    s = layer0_scan_inputs(params, cfg, prompt)
+    rows = [check_ssd_scan(timer, f"layer0 T={LM_PROMPT}", s, chunk,
+                           on_path=True)]
+    cut = {k: v[:, :2000] if v.ndim > 1 else v for k, v in s.items()}
+    rows.append(check_ssd_scan(timer, "layer0 T=2000 (ragged)", cut, chunk))
+    head = {k: v[:, :1000] if v.ndim > 1 else v for k, v in s.items()}
+    tail = {k: v[:, 1000:2000] if v.ndim > 1 else v for k, v in s.items()}
+    _, init = ref.ssd_chunked_ref(*(head[k] for k in ("x", "dt", "a", "B",
+                                                       "C", "d_skip")),
+                                  chunk=chunk)
+    rows.append(check_ssd_scan(timer, "layer0 T=1000..2000 init_state",
+                               tail, chunk, init=init))
+    rng = np.random.default_rng(0)
+    b, t, h, p, n = 2, 37, 3, 8, 16
+    suite = {"x": rng.normal(size=(b, t, h, p)),
+             "dt": np.log1p(np.exp(rng.normal(size=(b, t, h)))),
+             "a": -np.exp(rng.normal(size=h) * 0.3),
+             "B": rng.normal(size=(b, t, n)) * 0.3,
+             "C": rng.normal(size=(b, t, n)) * 0.3,
+             "d_skip": np.full(h, 0.5)}
+    suite = {k: torch.from_numpy(v.astype(np.float32)).to(prompt.device)
+             for k, v in suite.items()}
+    rows.append(check_ssd_scan(timer, "JAX suite (2, 37, 3, 8, 16)", suite,
+                               8))
+    return rows
+
+
+# --- phase 8: the LM main path -----------------------------------------------
+
+def teacher_forced(params, cfg, prompt, toks):
+    """prefill(last_only) and one decode step per generated token, each
+    timed to its synchronize, then ``forward`` over the prompt and all but
+    the last generated token. Returns the prefill's last logits, the decode
+    logits [B, n-1, V], forward's logits and the times; launch counts are
+    zeroed before ``forward`` and returned from just after it."""
+    s = prompt.shape[1]
+    t0 = time.perf_counter()
+    logits_p, cache = decode.prefill(params, cfg, {"tokens": prompt},
+                                     s + toks.shape[1], last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step_ms, step_logits = [], []
+    for i in range(toks.shape[1] - 1):
+        t0 = time.perf_counter()
+        logits_d, cache = decode.decode_step(params, cache, toks[:, i:i + 1],
+                                             s + i, cfg)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        step_logits.append(logits_d[:, 0])
+    full = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits_f, _ = tfm.forward(params, cfg, {"tokens": full})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches_fwd = ops.launch_counts()
+    check(logits_f.shape == (LM_BATCH, full.shape[1], cfg.vocab)
+          and bool(torch.isfinite(logits_f).all()),
+          f"forward logits {tuple(logits_f.shape)} or not finite")
+    return (logits_p[:, -1], torch.stack(step_logits, dim=1), logits_f,
+            dict(prefill_s=prefill_s, step_ms=step_ms, forward_s=fwd_s,
+                 forward_T=full.shape[1]), launches_fwd)
+
+
+def paths_agree(label, logits_p, logits_d, logits_f, bar):
+    """Prefill and decode logits against forward's at the same positions,
+    and their greedy tokens against forward's argmax wherever its top-1
+    logit leads its top-2 by more than ``bar``."""
+    s = logits_f.shape[1] - logits_d.shape[1]
+    toks = torch.argmax(torch.cat([logits_p[:, None], logits_d], dim=1), -1)
+    err_p = float((logits_p.float() - logits_f[:, s - 1].float()).abs().max())
+    err_d = float((logits_d.float() - logits_f[:, s:].float()).abs().max())
+    check(err_p <= bar, f"{label}: prefill vs forward logits differ by "
+          f"{err_p:.3g} > {bar:.3g}")
+    check(err_d <= bar, f"{label}: decode vs forward logits differ by "
+          f"{err_d:.3g} > {bar:.3g}")
+    f_pred = logits_f[:, s - 1:].float()                     # [B, n, V]
+    top2 = torch.topk(f_pred, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > bar
+    agree = torch.argmax(f_pred, dim=-1) == toks
+    check(bool(agree[clear].all()), f"{label}: greedy tokens differ from "
+          f"forward's argmax at {int((clear & ~agree).sum())} of "
+          f"{int(clear.sum())} positions with a clear lead")
+    return {f"{label}_prefill_vs_forward_max_abs": err_p,
+            f"{label}_decode_vs_forward_max_abs": err_d,
+            f"{label}_bar": bar,
+            f"{label}_greedy_positions_checked": int(clear.sum()),
+            f"{label}_greedy_equal_to_forward_argmax": int(agree.sum())}
+
+
+def lm_main_path(params, cfg, prompt):
+    """Phase 8: generate, the same prefill and decode steps timed, and
+    forward at full width and bf16 compute; then the f32 control on the
+    same weights and tokens. Returns the metrics and the launch counts."""
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = decode.generate(params, cfg, prompt, n_new=LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches_gen = ops.launch_counts()
+    check(toks.shape == (LM_BATCH, LM_NEW), f"generate gave {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "generate: tokens out of the vocabulary")
+    check(launches_gen["ssd_scan"] == cfg.n_layers,
+          f"ssd_scan ran {launches_gen['ssd_scan']} times in generate's "
+          f"prefill, not {cfg.n_layers}")
+    lp, ld, lf, times, launches_fwd = teacher_forced(params, cfg, prompt,
+                                                     toks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches_fwd["ssd_scan"] == cfg.n_layers,
+          f"ssd_scan ran {launches_fwd['ssd_scan']} times in forward, not "
+          f"{cfg.n_layers}")
+    check(torch.equal(torch.argmax(lp, -1), toks[:, 0])
+          and torch.equal(torch.argmax(ld, -1), toks[:, 1:]),
+          "the timed prefill and decode steps do not repeat generate")
+
+    # the f32 control: the same weights and tokens at f32 compute, where
+    # the paths must agree to F32_PATH_BAR
+    lp32, ld32, lf32, _, _ = teacher_forced(
+        params, dataclasses.replace(cfg, dtype=torch.float32), prompt, toks)
+    metrics = paths_agree("f32", lp32, ld32, lf32, F32_PATH_BAR)
+    # bf16 compute: held to the reach of bf16 rounding itself, the largest
+    # distance between the bf16 and f32 forwards of these weights and tokens
+    bf16_reach = float((lf.float() - lf32).abs().max())
+    del lp32, ld32, lf32
+    metrics.update(paths_agree("bf16", lp, ld, lf, bf16_reach))
+    step_ms = times["step_ms"]
+    metrics.update(
+        generate_s=gen_s, prefill_s=times["prefill_s"],
+        decode_ms_median=float(np.median(step_ms)),
+        decode_ms_all=[round(t, 3) for t in step_ms],
+        decode_tokens_per_s=LM_BATCH / (float(np.median(step_ms)) / 1e3),
+        generate_tokens_per_s=LM_BATCH * LM_NEW / gen_s,
+        forward_s=times["forward_s"], forward_T=times["forward_T"],
+        peak_gb=peak_gb)
+    return metrics, launches_gen, launches_fwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -498,7 +795,7 @@ def main() -> int:
     launches = {"kan_fused": launches_a["kan_fused"],
                 "cim_mac": launches_a["cim_mac"],
                 "cim_mac_tiled": launches_b["cim_mac_tiled"]}
-    for kname in SOURCES:
+    for kname in launches:
         check(launches[kname] > 0, f"{kname} was not launched on the path")
     for k, d in tiled.items():
         rep = chip.chip_report(d)
@@ -538,18 +835,71 @@ def main() -> int:
         d = abs(metrics["fused"][i] - metrics["lut"][i])
         check(d <= METRIC_TOL, f"fused vs lut {what} differ by {d:.3g}")
 
-    # 5. small-input reference (card against CPU)
+    # 5. small-input references (card against CPU)
     worst = small_reference(dev)
     print(f"small reference, card vs CPU max|err|: {worst}")
+    worst_lm = small_lm_reference(dev)
+    print(f"small LM reference (mamba2 SMOKE, f32), card vs CPU max|err|: "
+          f"{worst_lm:.3g}; generate tokens identical")
 
     # 6. Fig. 18 on the kernel path
     fig18(dev)
 
+    # the LM main path's model and prompts (set-up)
+    lcfg = mamba2_1p3b.CONFIG.model
+    data = lm_synth.batch_at(lm_synth.LMDataConfig(
+        vocab=lcfg.vocab, batch=LM_BATCH, seq_len=LM_PROMPT, seed=0), 0)
+    prompt = torch.from_numpy(data["tokens"]).to(dev)
+    t0 = time.perf_counter()
+    lparams = tfm.init_model(0, lcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tfm.count_params(lparams)
+    check(n_params == MAMBA2_PARAMS, f"mamba2-1.3b has {n_params:,} "
+          f"parameters, not {MAMBA2_PARAMS:,}")
+    print(f"LM init: {lcfg.name}, {n_params:,} parameters ({lcfg.n_layers} "
+          f"layers, d_model {lcfg.d_model}, {lcfg.ssd_cfg.n_heads} heads of "
+          f"{lcfg.ssm_head_dim}, N {lcfg.ssm_state}, chunk {lcfg.ssm_chunk}),"
+          f" compute {lcfg.dtype}, params {lcfg.param_dtype}, on the card "
+          f"in {init_s:.2f} s")
+
+    # 7. ssd_scan against its plain versions on layer 0's inputs
+    rows["ssd_scan"] = ssd_phase(timer, lparams, lcfg, prompt)
+    for r in rows["ssd_scan"]:
+        print(f"kernel ssd_scan {r['shape']}: max|err| vs plain y "
+              f"{r['y_vs_plain_max_abs_err']:.3g} state "
+              f"{r['state_vs_plain_max_abs_err']:.3g}, vs ssd_ref y "
+              f"{r['y_vs_ssd_ref_max_abs_err']:.3g} state "
+              f"{r['state_vs_ssd_ref_max_abs_err']:.3g} (share past the "
+              f"JAX bar alone: y {r['y_vs_plain_over_jax_bar']:.3g}); "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    torch.cuda.empty_cache()
+
+    # 8. the LM main path at full width, launch-counted
+    lm_metrics, launches_gen, launches_fwd = lm_main_path(lparams, lcfg,
+                                                          prompt)
+    launches["ssd_scan"] = launches_gen["ssd_scan"] + launches_fwd["ssd_scan"]
+    print(f"LM main path: launches generate {launches_gen}, forward "
+          f"{launches_fwd}")
+    print("LM main path: " + json.dumps(lm_metrics))
+    print(f"LM main path: init {init_s:.2f} s, prefill "
+          f"{LM_BATCH}x{LM_PROMPT} {lm_metrics['prefill_s']:.3f} s, decode "
+          f"{lm_metrics['decode_ms_median']:.2f} ms per step of {LM_BATCH} "
+          f"tokens ({lm_metrics['decode_tokens_per_s']:.1f} tokens/s), generate "
+          f"{LM_NEW} tokens {lm_metrics['generate_s']:.3f} s "
+          f"({lm_metrics['generate_tokens_per_s']:.1f} tokens/s), forward "
+          f"T={lm_metrics['forward_T']} {lm_metrics['forward_s']:.3f} s, peak "
+          f"{lm_metrics['peak_gb']:.2f} GB")
+    check(launches["ssd_scan"] > 0, "ssd_scan was not launched on the path")
+
     # result lines
     kernels = []
     for kname, krows in rows.items():
-        on_path = [r for r in krows if r.get("array_size", SERVE_AS)
-                   == SERVE_AS]          # one apply: the enc and dec shapes
+        # one apply (the enc and dec shapes) / one ssd_scan launch at the
+        # prefill's shape
+        on_path = [r for r in krows if r.get(
+            "on_path", r.get("array_size", SERVE_AS) == SERVE_AS)]
         ms = sum(r["ms"] for r in on_path)
         bound_ms = sum(r["bound_ms"] for r in on_path)
         by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]

@@ -524,18 +524,25 @@ _DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
 
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype.name == "bfloat16":         # ml_dtypes' bf16, as JAX gives it
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
     if a.dtype not in _DTYPES:
         raise TypeError(f"unsupported array dtype {a.dtype}")
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
 
-def params_from_numpy(tree: Mapping, device=None):
-    """A param tree given as (nested) dicts of numpy arrays — e.g. the JAX
-    package's ``{"enc": {"coeffs", "w_base"}, "dec": {...}}`` moved to
-    numpy — as the port's dict of tensors on ``device``."""
+def params_from_numpy(tree, device=None):
+    """A param tree given as nested dicts and lists of numpy arrays — e.g.
+    the JAX package's CF-KAN ``{"enc": {"coeffs", "w_base"}, ...}`` or LM
+    ``{"embed", "stages": [...]}`` moved to numpy — as the port's tree of
+    tensors on ``device`` (bf16 arrays become bf16 tensors)."""
     device = resolve_device(device)
-    return {k: params_from_numpy(v, device) if isinstance(v, Mapping)
-            else _to_tensor(v, device) for k, v in tree.items()}
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    return _to_tensor(tree, device)
 
 
 def deployed_from_numpy(layers: Sequence[Mapping], spec: KANSpec,

@@ -26,6 +26,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: argument types in order; each returns cudaGetLastError().
 SIGNATURES = {
     # x, codes, scale, hemi, y, B, I, S, O, k1, ld, n_levels, half, x_min,
@@ -36,6 +37,9 @@ SIGNATURES = {
     "cim_mac_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # v, w, gain (or null), atten, out, B, R, C, array_size, lsb, stream
     "cim_mac_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # x, dt, a, B, C, d_skip (or null), init (or null), scratch, y, final,
+    # B, T, H, P, N, chunk, x/dt/B/C batch and time strides, stream
+    "ssd_scan_launch": (_P,) * 10 + (_I,) * 6 + (_L,) * 8 + (_P,),
 }
 
 

@@ -12,7 +12,7 @@ and is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,10 +21,11 @@ from repro_torch.core.quant import ASPConfig
 from repro_torch.kernels import cim_mac as _cim
 from repro_torch.kernels import kan_fused as _kf
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 _KERNELS = {"kan_fused": _kf.kan_fused, "cim_mac": _cim.cim_mac,
-            "cim_mac_tiled": _cim.cim_mac_tiled}
+            "cim_mac_tiled": _cim.cim_mac_tiled, "ssd_scan": _ssd.ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -145,3 +146,41 @@ def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
         y = _cim.cim_mac_tiled(vf, w_codes, g, att, array_size=array_size,
                                lsb=lsb)
     return y.reshape(lead + (c,))
+
+
+def ssd_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b_mat: torch.Tensor, c_mat: torch.Tensor,
+              d_skip: Optional[torch.Tensor] = None, *, chunk: int = 64,
+              init_state: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba-2 SSD with its state. x: [B, T, H, P]; dt: [B, T, H]
+    (> 0); a: [H] (< 0); b_mat/c_mat: [B, T, N]; d_skip: [H] or None;
+    init_state: [B, H, P, N] or None. Returns (y [B, T, H, P] f32,
+    final_state [B, H, P, N] f32). T is taken as padded to a whole chunk
+    with dt = 0 rows (exact no-ops): the plain version pads, the kernel
+    masks the rows past T, which is the same."""
+    extra = {} if d_skip is None else {"d_skip": d_skip}
+    if init_state is not None:
+        extra["init_state"] = init_state
+    _same_device("ssd", x, dt=dt, a=a, b_mat=b_mat, c_mat=c_mat, **extra)
+    if chunk < 1:
+        raise ValueError(f"ssd: chunk must be >= 1, got {chunk}")
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_skip,
+                                   chunk=chunk, init_state=init_state)
+    f32 = torch.float32
+    return _ssd.ssd_scan(
+        x.to(f32), dt.to(f32), a.to(f32), b_mat.to(f32), c_mat.to(f32),
+        None if d_skip is None else d_skip.to(f32), chunk=chunk,
+        init_state=None if init_state is None else init_state.to(f32))
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b_mat: torch.Tensor, c_mat: torch.Tensor, d_skip: torch.Tensor, *,
+        chunk: int = 64) -> torch.Tensor:
+    """Padded wrapper of the chunked SSD kernel (``repro.kernels.ops.ssd``'s
+    signature). x: [B, T, H, P]; dt: [B, T, H]; a/d_skip: [H]; b/c:
+    [B, T, N]. Returns y [B, T, H, P] f32; T is padded to a chunk multiple
+    with dt = 0 rows (zero step size -> decay 1, zero input: exact
+    no-ops)."""
+    return ssd_state(x, dt, a, b_mat, c_mat, d_skip, chunk=chunk)[0]

@@ -7,9 +7,10 @@ compares the kernel with them on the same inputs.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.core.quant import ASPConfig
@@ -148,3 +149,119 @@ def cim_mac_ideal(v: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
     """Noise-free digital MAC for degradation comparisons."""
     return v.to(torch.float32) @ w_codes.to(torch.float32)
 
+
+
+# ---------------------------------------------------------------------------
+# ssd: Mamba-2 state-space duality
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b_mat: torch.Tensor, c_mat: torch.Tensor,
+            d_skip: Optional[torch.Tensor] = None,
+            init_state: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential-scan oracle of the chunked SSD.
+
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * x_t (x) B_t ;  y_t = h_t @ C_t
+
+    x [B, T, H, P], dt [B, T, H] (> 0), a [H] (< 0), b_mat/c_mat [B, T, N]
+    (shared across heads: n_groups = 1), d_skip [H] optional, init_state
+    [B, H, P, N] optional. Returns (y [B, T, H, P], final_state
+    [B, H, P, N]), both f32.
+    """
+    bsz, t, h, p = x.shape
+    n = b_mat.shape[-1]
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.to(torch.float32))
+    xf, dtf = x.to(torch.float32), dt.to(torch.float32)
+    bf, cf = b_mat.to(torch.float32), c_mat.to(torch.float32)
+    af = a.to(torch.float32)
+    ys = []
+    for s in range(t):
+        decay = torch.exp(dtf[:, s] * af[None, :])                 # [B, H]
+        upd = ((dtf[:, s, :, None] * xf[:, s])[..., None]
+               * bf[:, s, None, None, :])
+        state = decay[..., None, None] * state + upd               # [B,H,P,N]
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, s]))
+    y = torch.stack(ys, dim=1)
+    if d_skip is not None:
+        y = y + d_skip.to(torch.float32)[None, None, :, None] * xf
+    return y, state
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b_mat: torch.Tensor, c_mat: torch.Tensor,
+                    d_skip: Optional[torch.Tensor] = None, *,
+                    chunk: int = 64,
+                    init_state: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``ssd_scan`` kernel: the chunked form of
+    ``repro.models.ssd.ssd_chunked`` (Dao & Gu 2024). T is padded to a whole
+    chunk with dt = 0 rows (decay 1, zero input: exact no-ops).
+
+    XLA contracts the JAX form's three-operand einsums in its own order;
+    here every product is written pairwise, so no intermediate is larger
+    than [B, nc, cl, cl, H] (a three-operand ``torch.einsum`` may build a
+    larger one). The two differ by f32 summation order only.
+
+    Returns (y [B, T, H, P], final_state [B, H, P, N]), both f32.
+    """
+    bsz, t, h, p = x.shape
+    n = b_mat.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, pad))
+    tp = t + pad
+    nc, cl = tp // chunk, chunk
+
+    xf = x.to(torch.float32).reshape(bsz, nc, cl, h, p)
+    dtf = dt.to(torch.float32).reshape(bsz, nc, cl, h)
+    bf = b_mat.to(torch.float32).reshape(bsz, nc, cl, n)
+    cf = c_mat.to(torch.float32).reshape(bsz, nc, cl, n)
+
+    da = dtf * a.to(torch.float32)[None, None, None, :]   # [B,nc,cl,H] <= 0
+    cs = torch.cumsum(da, dim=2)                          # inclusive
+    seg_end = cs[:, :, -1, :]                             # [B,nc,H]
+    xdt = xf * dtf[..., None]                             # [B,nc,cl,H,P]
+
+    # intra-chunk: L[i,j,h] = exp(cs_i - cs_j) for i >= j. For i < j the
+    # difference is positive and exp() overflows to inf: select it away
+    # (exp(diff) * mask would give inf * 0 = NaN).
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]    # [B,nc,cl,cl,H]
+    tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
+    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                        torch.zeros((), device=x.device))
+    scores = torch.einsum("bcin,bcjn->bcij", cf, bf)      # [B,nc,cl,cl]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * l_mat,
+                          xdt)
+    del diff, l_mat
+
+    # per-chunk input state: sum_j exp(seg_end - cs_j) xdt_j (x) B_j
+    decay_out = torch.exp(seg_end[:, :, None, :] - cs)    # [B,nc,cl,H]
+    state_c = torch.einsum("bcjhp,bcjn->bchpn", xdt * decay_out[..., None],
+                           bf)
+
+    # inter-chunk recurrence over the chunk index
+    s = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.to(torch.float32))
+    chunk_decay = torch.exp(seg_end)                      # [B,nc,H]
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)                                    # state BEFORE c
+        s = chunk_decay[:, c, :, None, None] * s + state_c[:, c]
+    s_in = torch.stack(s_in, dim=1)                       # [B,nc,H,P,N]
+
+    # off-diagonal: the carried-in state read out inside the chunk
+    decay_in = torch.exp(cs)                              # [B,nc,cl,H]
+    y_off = (torch.einsum("bchpn,bcin->bcihp", s_in, cf)
+             * decay_in[..., None])
+
+    y = (y_diag + y_off).reshape(bsz, tp, h, p)[:, :t]
+    if d_skip is not None:
+        y = y + (d_skip.to(torch.float32)[None, None, :, None]
+                 * x.to(torch.float32)[:, :t])
+    return y, s

@@ -1,0 +1,150 @@
+"""Shared neural-net building blocks (port of ``repro.models.layers``):
+plain functions on tensors and dicts of tensors, in the JAX package's
+layouts.
+
+Initialisers draw from an explicit ``torch.Generator`` on the device they
+fill (a CUDA generator for the card, so the draws never leave it; any
+generator with ``device="meta"``, which only gives shapes). The two
+frameworks' generators give different numbers from one seed: parity tests
+carry the JAX weights across instead.
+
+JAX promotes mixed dtypes in a product (bf16 @ f32 is f32); ``torch.matmul``
+raises on them. ``matmul`` makes that promotion explicit, and every product
+of the port's LM stack goes through it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def matmul(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` in the dtype JAX gives a mixed product: both operands are
+    cast to their promoted type first (bf16 @ f32 runs, and returns, f32)."""
+    rt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(rt) @ b.to(rt)
+
+
+def normal(gen: Optional[torch.Generator], shape, device) -> Tensor:
+    """Standard normal f32 draws of ``shape`` on ``device`` from ``gen``."""
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+# --- norms -------------------------------------------------------------------
+
+def init_rmsnorm(d: int, device=None) -> Dict[str, Tensor]:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-6
+            ) -> Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * params["scale"]
+    return y.to(x.dtype)
+
+
+def init_layernorm(d: int, device=None) -> Dict[str, Tensor]:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-5
+              ) -> Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
+NORM_INIT = {"rmsnorm": init_rmsnorm, "layernorm": init_layernorm}
+NORM_APPLY = {"rmsnorm": rmsnorm, "layernorm": layernorm}
+
+
+# --- dense -------------------------------------------------------------------
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out,
+               dtype=torch.float32, scale: Optional[float] = None,
+               device=None) -> Tensor:
+    shape = (d_in,) + (d_out if isinstance(d_out, tuple) else (d_out,))
+    std = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return (normal(gen, shape, device) * std).to(dtype)
+
+
+# --- activations -------------------------------------------------------------
+
+def gelu(x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def squared_relu(x: Tensor) -> Tensor:
+    r = torch.relu(x)
+    return r * r
+
+
+ACTIVATIONS = {
+    "gelu": gelu,
+    "silu": F.silu,
+    "relu": torch.relu,
+    "relu2": squared_relu,
+}
+
+
+# --- rotary position embedding -----------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> Tensor:
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0
+               ) -> Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] or [S] integers."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # [hd/2]
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].to(torch.float32) * freqs    # [B, S, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, max_scale: float = 10000.0,
+                         device=None) -> Tensor:
+    """Whisper-style fixed sinusoidal embeddings [seq, d]."""
+    half = d // 2
+    freq = torch.exp(-math.log(max_scale)
+                     * torch.arange(half, dtype=torch.float32, device=device)
+                     / (half - 1))
+    args = (torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+            * freq[None, :])
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+# --- embedding ---------------------------------------------------------------
+
+def init_embedding(gen: Optional[torch.Generator], vocab: int, d: int,
+                   dtype=torch.float32, device=None) -> Tensor:
+    return (normal(gen, (vocab, d), device) * (1.0 / math.sqrt(d))).to(dtype)
+
+
+def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
+    return table[ids.to(torch.long)]
+
+
+def unembed(x: Tensor, table: Tensor) -> Tensor:
+    """Tied output projection: ``einsum("bsd,vd->bsv")`` in the promoted
+    dtype (bf16 x bf16 stays bf16)."""
+    return matmul(x, table.transpose(0, 1))

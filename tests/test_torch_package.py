@@ -6,6 +6,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,7 +14,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import cf_kan_1  # noqa: E402
 from repro_torch.core import kan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.configs import mamba2_1p3b  # noqa: E402
 from repro_torch.models import cf_kan  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve import decode  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -66,8 +70,21 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         cf_kan.init(0, cf_kan_1.SMOKE_MODEL)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         kan.params_from_numpy({}, None)
+    lm = mamba2_1p3b.SMOKE.model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_model(0, lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.params_from_numpy({"stages": [{"embed": np.zeros(2)}]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode.init_cache(lm, 1, 8)
     params = kan.init(0, spec, device="cpu")
     assert params["coeffs"].device.type == "cpu"
+    lm_params = transformer.init_model(0, lm, device="cpu")
+    assert lm_params["embed"].device.type == "cpu"
+    # generate runs where its parameters lie: the CPU's plain versions here
+    out = decode.generate(lm_params, lm, torch.zeros((1, 4), dtype=torch.long),
+                          n_new=2)
+    assert out.shape == (1, 2) and out.device.type == "cpu"
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -78,7 +95,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert path.parent == tmp_path and path.name.startswith("libkernels_")
     assert path == build.library_path()
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
-        "kan_fused.cu", "cim_mac.cu", "cim_mac_tiled.cu"}
+        "kan_fused.cu", "cim_mac.cu", "cim_mac_tiled.cu", "ssd_scan.cu"}
     if build.shutil.which("nvcc") is None and not Path(
             "/usr/local/cuda/bin/nvcc").exists():
         build.load.cache_clear()
