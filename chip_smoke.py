@@ -13,7 +13,10 @@ Phases (any failed check raises, and the script exits non-zero):
    the main path gives them (CF-KAN-1 encoder and decoder, batch 256, inputs
    from the synthetic users). ``kan_fused`` is held to
    ``|kernel - plain| <= 1e-6 * sum_{i,s} |E[b,i,s] * codes[i,s,o] * scale[o]|``
-   (its f32 sums run over up to 163,840 terms in another order).
+   (its sums run over up to 163,840 terms in another order), and a second
+   launch on the same inputs must give bitwise the same output; its rows
+   also report the kernel's and the plain version's distance from the
+   exact (float64) sum in units of ``atol 2e-5 + rtol 1e-5``.
    ``cim_mac`` (As in 128..1024, gamma0 0.08) is held to ``atol 2e-3,
    rtol 1e-4`` (the JAX suite's bar, set at R <= 256) plus the same
    ``1e-6 * sum|terms|``, the terms being ``2^k * readout`` over up to 1280
@@ -23,8 +26,15 @@ Phases (any failed check raises, and the script exits non-zero):
    ``variation.grid_gain`` at sigma 0.05, seed 0) takes the WL values in the
    physical order that ``chip.place_layer`` gives them and must give
    bit-identical int32 codes. Times come from CUDA events with the L2 cache
-   flushed before every launch; ``bound_ms`` is the larger of bytes over
-   3.35 TB/s and f32 operations over 67 TFLOP/s (H100 SXM data sheet).
+   flushed before every launch (``Timer``); ``kan_fused``'s rows and its
+   library call's also give the device's time alone (``device_ms``,
+   ``library_device_ms``) and the host's time per call (``host_ms``,
+   ``library_host_ms``). ``bound_ms`` is the larger of bytes over
+   3.35 TB/s and operations over the peak of their type (H100 SXM data
+   sheet): f32 over 67 TFLOP/s, except ``kan_fused``, whose exact result
+   takes 3 bf16 products (the three-way split of each tap) per nonzero
+   basis entry and output at 989 TFLOP/s; its row keeps the f32 count on
+   the CUDA cores beside it as ``bound_f32_ms``.
 4. The main path, CF-KAN-1 from ``init(seed=0)`` and 1024 synthetic users
    served in batches of 256 through ``kan.apply``, in two runs, each with
    the launch counts zeroed just before and read just after:
@@ -101,6 +111,7 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serve import decode  # noqa: E402
 
 PEAK_F32 = 67e12          # FLOP/s, H100 SXM, outside the tensor cores
+PEAK_BF16 = 989e12        # FLOP/s, H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12      # B/s, H100 SXM HBM3
 BATCH, N_USERS = 256, 1024
 ARRAY_SIZES = (128, 256, 512, 1024)
@@ -144,30 +155,45 @@ def check(ok: bool, what: str) -> None:
 
 
 class Timer:
-    """Median per-call device time from CUDA events, each call preceded by
-    a write of 128 MB so that no input is left in the 50 MB L2 cache."""
+    """Median per-call time from CUDA events, each call preceded by a write
+    of 128 MB so that no input is left in the 50 MB L2 cache. The start
+    event runs when the flush ends, so the part of a call's host time that
+    outlasts the flush on the card is counted too. With ``spin=True`` the
+    card first spins for about 1 ms after the flush, so that the host has
+    queued the call's launches before the start event runs: the events then
+    hold the device's work alone. ``host_ms`` is the median host time, from
+    entry to return (launches queued), of the last ``ms`` call's calls."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, dev):
         self.flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+        self.host_ms = float("nan")
 
-    def ms(self, fn, reps: int, warmup: int = 2) -> float:
+    def ms(self, fn, reps: int, warmup: int = 2, spin: bool = False
+           ) -> float:
         for _ in range(warmup):
             fn()
-        times = []
+        times, host = [], []
         for _ in range(reps):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+            t0 = time.perf_counter()
             fn()
+            host.append(1e3 * (time.perf_counter() - t0))
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
+        self.host_ms = float(np.median(host))
         return float(np.median(times))
 
 
-def bound(ops_f32: float, n_bytes: float):
-    t_ops, t_bytes = ops_f32 / PEAK_F32, n_bytes / PEAK_BYTES
+def bound(n_ops: float, n_bytes: float, peak: float = PEAK_F32):
+    t_ops, t_bytes = n_ops / peak, n_bytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -188,20 +214,41 @@ def check_kan_fused(timer, label, x, layer, asp):
     check(bool((err <= ORDER_REL * mass).all()),
           f"kan_fused {label}: |kernel - plain| / sum|terms| = {worst:.3g} "
           f"> {ORDER_REL}")
+    again = ops.kan_spline_fused_deployed(x, codes, scale, asp, hemi=hemi)
+    check(torch.equal(got, again), f"kan_fused {label}: two launches on the "
+          "same inputs differ")
     b, i = x.shape
     o = codes.shape[-1]
+    # both against the exact sum, in units of the kernel tests' bar
+    exact = (e.double() @ c.double()) * scale.double()
+    jax_bar = 2e-5 + 1e-5 * exact.abs()
+    over_bar = {name: float(((y.double() - exact).abs() / jax_bar).max())
+                for name, y in (("kernel", got), ("plain", want))}
+    del exact, jax_bar
     c_deq = quant.dequantize_coeffs(codes, layer.scale).reshape(e.shape[1], o)
     row = dict(shape=label, B=b, I=i, O=o, max_abs_err=float(err.max()),
                max_err_over_sum_abs_terms=worst,
+               kernel_vs_exact_over_bar=over_bar["kernel"],
+               plain_vs_exact_over_bar=over_bar["plain"],
                ms=timer.ms(lambda: ops.kan_spline_fused_deployed(
-                   x, codes, scale, asp, hemi=hemi), reps=20),
-               plain_ms=timer.ms(lambda: ref.kan_spline_ref(
-                   x, codes, scale, asp, hemi), reps=5),
-               library_ms=timer.ms(lambda: torch.matmul(e, c_deq), reps=20))
-    flops = 2.0 * float((e != 0).sum()) * o + b * o   # K+1 taps, epilogue
+                   x, codes, scale, asp, hemi=hemi), reps=20))
+    row["host_ms"] = timer.host_ms
+    row["device_ms"] = timer.ms(lambda: ops.kan_spline_fused_deployed(
+        x, codes, scale, asp, hemi=hemi), reps=20, spin=True)
+    row["plain_ms"] = timer.ms(lambda: ref.kan_spline_ref(
+        x, codes, scale, asp, hemi), reps=5)
+    row["library_ms"] = timer.ms(lambda: torch.matmul(e, c_deq), reps=20)
+    row["library_host_ms"] = timer.host_ms
+    row["library_device_ms"] = timer.ms(lambda: torch.matmul(e, c_deq),
+                                        reps=20, spin=True)
+    nnz = float((e != 0).sum())
     n_bytes = (x.numel() * 4 + codes.numel() + scale.numel() * 4
                + hemi.numel() * 4 + b * o * 4)
-    row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
+    # the exact result on the tensor cores: 3 split products per nonzero
+    # basis entry and output; on the CUDA cores: one f32 FMA; the epilogue
+    row["bound_ms"], row["bound_by"] = bound(3 * 2.0 * nnz * o + b * o,
+                                             n_bytes, PEAK_BF16)
+    row["bound_f32_ms"] = bound(2.0 * nnz * o + b * o, n_bytes)[0]
     return row
 
 
@@ -911,6 +958,9 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in krows), ms=ms,
             plain_ms=sum(r["plain_ms"] for r in on_path), bound_ms=bound_ms,
             bound_by=by, library_ms=lib, per_shape=krows))
+        if all("bound_f32_ms" in r for r in on_path):
+            kernels[-1]["bound_f32_ms"] = sum(r["bound_f32_ms"]
+                                              for r in on_path)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

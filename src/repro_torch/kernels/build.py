@@ -27,12 +27,15 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-# C entry points: argument types in order; each returns cudaGetLastError().
+# C entry points: argument types in order; each returns cudaGetLastError()
+# unless RESTYPES says otherwise.
 SIGNATURES = {
-    # x, codes, scale, hemi, y, B, I, S, O, k1, ld, n_levels, half, x_min,
-    # step, stream
-    "kan_fused_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _P),
+    # x, codes, scale, hemi, y, scratch (or null), B, I, S, O, k1, ld,
+    # n_levels, half, x_min, step, stream
+    "kan_fused_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _F, _P),
+    # B, I, S, O -> f64 elements of scratch that kan_fused_launch needs
+    "kan_fused_scratch": (_I, _I, _I, _I),
     # v, w, atten, out, B, R, C, array_size, lsb, stream
     "cim_mac_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # v, w, gain (or null), atten, out, B, R, C, array_size, lsb, stream
@@ -41,6 +44,7 @@ SIGNATURES = {
     # B, T, H, P, N, chunk, x/dt/B/C batch and time strides, stream
     "ssd_scan_launch": (_P,) * 10 + (_I,) * 6 + (_L,) * 8 + (_P,),
 }
+RESTYPES = {"kan_fused_scratch": _L}
 
 
 def _nvcc() -> str:
@@ -105,7 +109,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -1,12 +1,18 @@
 """Fused KAN spline layer: the wrapper of the hand-written CUDA kernel
 ``csrc/kan_fused.cu`` (port of the TPU kernel ``repro.kernels.kan_fused``).
 
-The kernel fuses quantise -> PowerGap decode -> SH-LUT -> K+1-tap
-contraction against int8 codes, so the expanded basis never reaches HBM.
+The kernel fuses quantise -> PowerGap decode -> SH-LUT -> contraction
+against int8 codes, so the expanded basis never reaches HBM. It runs the
+contraction on the tensor cores in bf16 over an exact three-way split of
+the SH-LUT taps; when the output alone does not fill the card, it splits
+the inputs over blocks whose f64 partial sums go to a scratch buffer
+allocated here, and adds them in a fixed order.
 Its plain version is ``kernels.ref.kan_spline_ref``; ``kernels.ops`` picks
 between the two by the device of the input.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -14,7 +20,25 @@ from repro_torch.core.quant import ASPConfig
 from repro_torch.kernels import build
 
 MAX_TAPS = 4      # K + 1 held per (b, i) by the kernel
-MAX_HALF = 128    # SH-LUT rows held in shared memory
+MAX_HALF = 128    # SH-LUT rows: L <= 256 levels per interval
+
+
+@functools.lru_cache(maxsize=None)
+def _asp_args(asp: ASPConfig) -> tuple:
+    """The kernel's scalars for a config, computed once: (S, K+1, LD,
+    n_levels, ceil(L/2), x_min, step)."""
+    return (asp.n_basis, asp.n_taps, asp.ld, asp.n_levels,
+            (asp.levels_per_interval + 1) // 2, asp.x_min, asp.step)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_size(device_index: int, *shape: int) -> int:
+    """f64 elements of split-sum scratch for (B, I, S, O) on a device (the
+    kernel's own plan, asked once per shape and device)."""
+    with torch.cuda.device(device_index):
+        n = build.load().kan_fused_scratch(*shape)
+    build.check(max(-n, 0), "kan_fused plan")
+    return n
 
 
 def kan_fused(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
@@ -24,27 +48,37 @@ def kan_fused(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     Returns y [B, O] f32. Counts each launch in ``kan_fused.launches``."""
     b, i = x.shape
     o = codes.shape[-1]
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError("kan_fused: x must be on a CUDA device")
     for name, t, dtype in (("x", x, torch.float32), ("codes", codes, torch.int8),
                            ("scale", scale, torch.float32),
                            ("hemi", hemi, torch.float32)):
-        if t.device != x.device or t.device.type != "cuda":
+        if t.device != dev:
             raise ValueError(f"kan_fused: {name} must be on x's CUDA device")
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"kan_fused: {name} must be contiguous {dtype}")
-    if codes.shape != (i, asp.n_basis, o) or scale.shape != (o,):
+    s_, k1, ld, n_levels, half, x_min, step = _asp_args(asp)
+    if codes.shape != (i, s_, o) or scale.shape != (o,):
         raise ValueError(f"kan_fused: codes {tuple(codes.shape)} / scale "
                          f"{tuple(scale.shape)} do not fit x {tuple(x.shape)}")
-    half, k1 = hemi.shape
-    if k1 != asp.n_taps or not 1 <= k1 <= MAX_TAPS or half > MAX_HALF:
-        raise ValueError(f"kan_fused: SH-LUT {tuple(hemi.shape)} outside the "
+    if hemi.shape != (half, k1) or not 1 <= k1 <= MAX_TAPS or half > MAX_HALF:
+        raise ValueError(f"kan_fused: SH-LUT {tuple(hemi.shape)} is not "
+                         f"[ceil(L/2), K+1] = [{half}, {k1}], or outside the "
                          f"kernel's K+1 <= {MAX_TAPS}, rows <= {MAX_HALF}")
     lib = build.load()
-    y = torch.empty((b, o), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    y = torch.empty((b, o), dtype=torch.float32, device=dev)
+    n_scratch = _scratch_size(dev.index, b, i, s_, o)
+    scratch = (torch.empty(n_scratch, dtype=torch.float64, device=dev)
+               if n_scratch else None)
+    # the current stream's handle, without building a Stream object (a
+    # few microseconds of host time per call)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     build.check(lib.kan_fused_launch(
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), hemi.data_ptr(),
-        y.data_ptr(), b, i, asp.n_basis, o, k1, asp.ld, asp.n_levels, half,
-        asp.x_min, asp.step, stream), "kan_fused launch")
+        y.data_ptr(), None if scratch is None else scratch.data_ptr(), b, i,
+        s_, o, k1, ld, n_levels, half, x_min, step, stream),
+        "kan_fused launch")
     kan_fused.launches += 1
     return y
 

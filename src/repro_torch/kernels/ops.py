@@ -70,14 +70,19 @@ def kan_spline_fused_deployed(x: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"scale has {scale.numel()} elements for O={o}")
     if not (codes.is_contiguous() and hemi.is_contiguous()):
         raise ValueError("codes and hemi must be contiguous")
-    xf = x.reshape(-1, i).to(torch.float32).contiguous()
-    scale_o = scale.reshape(o).to(torch.float32).contiguous()
+    # the serving path passes f32 [B, I] and [O] already: leave those as
+    # they are, since this runs once per layer call on the host
+    flat_f32 = x.dim() == 2 and x.dtype == torch.float32
+    xf = x if flat_f32 and x.is_contiguous() else \
+        x.reshape(-1, i).to(torch.float32).contiguous()
+    if scale.dim() != 1 or scale.dtype != torch.float32 or \
+            not scale.is_contiguous():
+        scale = scale.reshape(o).to(torch.float32).contiguous()
     if x.device.type == "cpu":
-        y = ref.kan_spline_ref(xf, codes, scale_o, asp, hemi)
+        y = ref.kan_spline_ref(xf, codes, scale, asp, hemi)
     else:
-        y = _kf.kan_fused(xf, codes, scale_o, hemi.to(torch.float32),
-                          asp=asp)
-    return y.reshape(lead + (o,)).to(x.dtype)
+        y = _kf.kan_fused(xf, codes, scale, hemi.to(torch.float32), asp=asp)
+    return y if flat_f32 else y.reshape(lead + (o,)).to(x.dtype)
 
 
 def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,

@@ -8,7 +8,13 @@ kernels themselves against those plain versions on the card.
   rtol=1e-4``.
 * ``cuda``-marked cases launch the CUDA kernels on the card and skip without
   one. They import no JAX, so they also run where JAX is not installed:
-  ``python -m pytest -q -m cuda tests/test_torch_kernels.py``.
+  ``python -m pytest -q -m cuda tests/test_torch_kernels.py``. Besides the
+  small cases against the plain version, ``kan_fused`` runs at shapes that
+  cross its k-block, output-tile and split edges and at CF-KAN-1's full
+  encoder and decoder shapes. There it is held, at the same bar, to the
+  plain version's formula evaluated in float64: at I*S = 163,840 slots two
+  f32 summation orders (the plain version's own among them) already differ
+  from the exact sum by up to about the bar itself.
 """
 import types
 
@@ -26,6 +32,13 @@ KAN_SHAPES = [(8, 8, 8), (37, 23, 50), (128, 64, 128), (5, 130, 3)]
 KAN_CASES = ([(g, 3, s) for g in (5, 8, 16, 64) for s in KAN_SHAPES]
              + [(g, 2, (37, 23, 50)) for g in (5, 8, 16, 64)])
 CIM_SHAPES = [(9, 100, 17), (32, 256, 64)]
+# (B, I, O) at CF-KAN-1's G=7, K=3: B in {1, 257} around the 128-row tile,
+# I in {1, 16384} at O = 108 (one k-block; the split over the inputs), O in
+# {1, 16384} at I = 108 (1-byte and 16-byte code copies; 128 column tiles)
+KAN_EDGE_SHAPES = [(1, 16384, 108), (257, 16384, 108), (1, 1, 108),
+                   (257, 1, 108), (1, 108, 1), (257, 108, 1),
+                   (1, 108, 16384), (257, 108, 16384)]
+CF_KAN_1_SHAPES = {"enc": (256, 16384, 108), "dec": (256, 108, 16384)}
 
 
 @pytest.fixture(scope="module")
@@ -158,3 +171,43 @@ def test_cim_mac_kernel_matches_plain(cuda, array_size, shape):
     want = tref.cim_mac_ref(vt, wt, at, array_size, 8)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=2e-3, rtol=1e-4)
+
+
+def _kan_exact(x, codes, scale, cfg):
+    """The plain version's formula in float64: E (f32, exact in f64) times
+    the codes, times the scale."""
+    e = tq.quantized_basis(x, tq.hemi_for(cfg, x.device), cfg)
+    e = e.reshape(x.shape[0], -1).to(torch.float64)
+    c = codes.to(torch.float64).reshape(e.shape[1], -1)
+    return (e @ c) * scale.to(torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KAN_EDGE_SHAPES
+                         + list(CF_KAN_1_SHAPES.values()),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kan_fused_kernel_edges_and_cf_kan_1(cuda, shape):
+    cfg, x, codes, scale = _kan_inputs(7, 3, shape, seed=sum(shape))
+    xt, ct, st = (torch.from_numpy(x).to(cuda), codes.to(cuda),
+                  scale.to(cuda))
+    before = tops.launch_counts()["kan_fused"]
+    got = tops.kan_spline_fused_deployed(xt, ct, st, cfg)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["kan_fused"] == before + 1
+    want = _kan_exact(xt, ct, st, cfg)
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want.cpu().numpy(), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", sorted(CF_KAN_1_SHAPES))
+def test_kan_fused_kernel_is_deterministic(cuda, layer):
+    """No atomics: two launches on the same inputs are bitwise equal, with
+    and without the split over the inputs (encoder / decoder)."""
+    cfg, x, codes, scale = _kan_inputs(7, 3, CF_KAN_1_SHAPES[layer], seed=1)
+    xt, ct, st = (torch.from_numpy(x).to(cuda), codes.to(cuda),
+                  scale.to(cuda))
+    first = tops.kan_spline_fused_deployed(xt, ct, st, cfg)
+    second = tops.kan_spline_fused_deployed(xt, ct, st, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
