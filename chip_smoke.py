@@ -63,8 +63,15 @@ Phases (any failed check raises, and the script exits non-zero):
    state are held to the JAX suite's ``atol 3e-5, rtol 1e-4`` plus
    ``1e-6 * sum|terms|`` (the f32 sums run over up to 256 steps and 128
    state columns in another order; ``sum|terms|`` is the scan of |x|,
-   |B|, |C|, |D| and |init|). Timed like phase 3; ``bound_ms`` counts the
-   chunked algorithm's operations on these inputs.
+   |B|, |C|, |D| and |init|); each row gives the largest err/tolerance
+   against both. Timed like phase 3; ``bound_ms`` counts the chunked
+   algorithm's f32 operations on these inputs, ``bound_tf32_ms`` three
+   times as many at the tf32 tensor-core peak (the kernel's 3xTF32
+   products), ``tflops`` the f32 count over the measured time. The prefill
+   row also gives ``mma_sync_ms``, the 3xTF32 count at the rate that the
+   kernel's mma.sync building block alone reaches on the card
+   (``ssd_mma_probe``), and, once phase 8 is done, each of the kernel's
+   five CUDA kernels' device time from a ``torch.profiler`` trace.
 8. The LM main path at full width: mamba2-1.3b ``CONFIG`` (48 layers,
    1,343,532,032 parameters, bf16 compute, f32 parameters) initialised on
    the card from a seeded CUDA generator, 4 prompts of 2048 tokens from
@@ -112,6 +119,7 @@ from repro_torch.serve import decode  # noqa: E402
 
 PEAK_F32 = 67e12          # FLOP/s, H100 SXM, outside the tensor cores
 PEAK_BF16 = 989e12        # FLOP/s, H100 SXM, bf16 tensor cores, dense
+PEAK_TF32 = 495e12        # FLOP/s, H100 SXM, tf32 tensor cores, dense
 PEAK_BYTES = 3.35e12      # B/s, H100 SXM HBM3
 BATCH, N_USERS = 256, 1024
 ARRAY_SIZES = (128, 256, 512, 1024)
@@ -560,7 +568,8 @@ def ssd_work(x_shape, n, chunk, init):
     return flops, n_bytes
 
 
-def check_ssd_scan(timer, label, s, chunk, init=None, on_path=False):
+def check_ssd_scan(timer, label, s, chunk, init=None, on_path=False,
+                   mma_tflops=None):
     """Kernel against the chunked plain form and the sequential oracle."""
     args = [s[k] for k in ("x", "dt", "a", "B", "C", "d_skip")]
     got_y, got_s = ops.ssd_state(*args, chunk=chunk, init_state=init)
@@ -586,6 +595,7 @@ def check_ssd_scan(timer, label, s, chunk, init=None, on_path=False):
                   f"max |err| / tolerance {worst:.3g} (max |err| "
                   f"{float(err.max()):.3g})")
             row[f"{name}_vs_{oname}_max_abs_err"] = float(err.max())
+            row[f"{name}_vs_{oname}_err_over_tol"] = worst
             row[f"{name}_vs_{oname}_over_jax_bar"] = float(
                 (err > jax_bar).float().mean())
     row["max_abs_err"] = max(row["y_vs_plain_max_abs_err"],
@@ -598,15 +608,69 @@ def check_ssd_scan(timer, label, s, chunk, init=None, on_path=False):
     flops, n_bytes = ssd_work(tuple(s["x"].shape), s["B"].shape[-1], chunk,
                               init is not None)
     row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
+    # the kernel's products run as three tf32 products on the tensor cores
+    row["bound_tf32_ms"], _ = bound(3 * flops, n_bytes, PEAK_TF32)
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    if mma_tflops:  # the same 3xTF32 work at the rate mma.sync reaches
+        row["mma_sync_ms"] = 3 * flops / (mma_tflops * 1e9)
     return row
+
+
+def mma_probe_tflops(dev, blocks=132 * 8, iters=512):
+    """TF32 TFLOP/s of ``ssd_scan.cu``'s tensor-core building block alone
+    (``ssd_mma_probe``: 24 mma.sync.m16n8k8 a k-step on register operands,
+    no memory traffic), the ceiling of the kernel's design on this card."""
+    lib = build.load()
+    out = torch.empty(blocks * 128, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        build.check(lib.ssd_mma_probe(out.data_ptr(), blocks, iters, stream),
+                    "ssd_mma_probe")
+
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    check(bool(torch.isfinite(out).all()), "ssd_mma_probe: not finite")
+    return blocks * 4 * iters * 24 * 2048 / (start.elapsed_time(end) * 1e9)
+
+
+def ssd_stage_ms(args, chunk, init, reps=5):
+    """Device time per call of each of the kernel's five CUDA kernels, from
+    a ``torch.profiler`` trace of ``reps`` calls (inputs warm in L2); empty
+    when the trace holds no device times."""
+    from torch.profiler import ProfilerActivity, profile
+    ops.ssd_state(*args, chunk=chunk, init_state=init)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ops.ssd_state(*args, chunk=chunk, init_state=init)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "device_time_total", 0.0)
+              or getattr(ev, "cuda_time_total", 0.0))
+        name = next((k for k in ("split", "scores", "state", "pass", "scan")
+                     if f"ssd_{k}_kernel" in ev.key), None)
+        if name and us:
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
 
 
 def ssd_phase(timer, params, cfg, prompt):
     """Phase 7: the rows of the kernel table for ``ssd_scan``."""
     chunk = cfg.ssd_cfg.chunk
+    mma = mma_probe_tflops(prompt.device)
+    print(f"kernel ssd_scan: its mma.sync building block alone reaches "
+          f"{mma:.1f} TF32 TFLOP/s (peak {PEAK_TF32 / 1e12:.0f})")
     s = layer0_scan_inputs(params, cfg, prompt)
     rows = [check_ssd_scan(timer, f"layer0 T={LM_PROMPT}", s, chunk,
-                           on_path=True)]
+                           on_path=True, mma_tflops=mma)]
     cut = {k: v[:, :2000] if v.ndim > 1 else v for k, v in s.items()}
     rows.append(check_ssd_scan(timer, "layer0 T=2000 (ragged)", cut, chunk))
     head = {k: v[:, :1000] if v.ndim > 1 else v for k, v in s.items()}
@@ -917,10 +981,17 @@ def main() -> int:
               f"{r['y_vs_plain_max_abs_err']:.3g} state "
               f"{r['state_vs_plain_max_abs_err']:.3g}, vs ssd_ref y "
               f"{r['y_vs_ssd_ref_max_abs_err']:.3g} state "
-              f"{r['state_vs_ssd_ref_max_abs_err']:.3g} (share past the "
+              f"{r['state_vs_ssd_ref_max_abs_err']:.3g}; err/tolerance vs "
+              f"plain y {r['y_vs_plain_err_over_tol']:.3g} state "
+              f"{r['state_vs_plain_err_over_tol']:.3g}, vs ssd_ref y "
+              f"{r['y_vs_ssd_ref_err_over_tol']:.3g} state "
+              f"{r['state_vs_ssd_ref_err_over_tol']:.3g} (share past the "
               f"JAX bar alone: y {r['y_vs_plain_over_jax_bar']:.3g}); "
-              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+              f"{r['ms']:.4f} ms, {r['tflops']:.2f} TFLOP/s (plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}, 3xTF32 bound {r['bound_tf32_ms']:.4f}"
+              + (f", at mma.sync's rate {r['mma_sync_ms']:.4f}"
+                 if "mma_sync_ms" in r else "") + ")")
     torch.cuda.empty_cache()
 
     # 8. the LM main path at full width, launch-counted
@@ -940,6 +1011,18 @@ def main() -> int:
           f"{lm_metrics['peak_gb']:.2f} GB")
     check(launches["ssd_scan"] > 0, "ssd_scan was not launched on the path")
 
+    # ssd_scan's five CUDA kernels on the prefill's shape, from a profiler
+    # trace taken after the timed paths, which its tracing could slow
+    scan_in = layer0_scan_inputs(lparams, lcfg, prompt)
+    stage = ssd_stage_ms([scan_in[k] for k in ("x", "dt", "a", "B", "C",
+                                               "d_skip")],
+                         lcfg.ssd_cfg.chunk, None)
+    rows["ssd_scan"][0]["stage_ms"] = stage
+    print("kernel ssd_scan stages at the prefill's shape (device ms per "
+          "call, profiler): " + (json.dumps(stage) if stage else
+                                 "not measured (no device times in the "
+                                 "trace)"))
+
     # result lines
     kernels = []
     for kname, krows in rows.items():
@@ -958,9 +1041,9 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in krows), ms=ms,
             plain_ms=sum(r["plain_ms"] for r in on_path), bound_ms=bound_ms,
             bound_by=by, library_ms=lib, per_shape=krows))
-        if all("bound_f32_ms" in r for r in on_path):
-            kernels[-1]["bound_f32_ms"] = sum(r["bound_f32_ms"]
-                                              for r in on_path)
+        for extra in ("bound_f32_ms", "bound_tf32_ms"):
+            if all(extra in r for r in on_path):
+                kernels[-1][extra] = sum(r[extra] for r in on_path)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

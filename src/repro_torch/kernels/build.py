@@ -40,9 +40,13 @@ SIGNATURES = {
     "cim_mac_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # v, w, gain (or null), atten, out, B, R, C, array_size, lsb, stream
     "cim_mac_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # x, dt, a, B, C, d_skip (or null), init (or null), scratch, y, final,
-    # B, T, H, P, N, chunk, x/dt/B/C batch and time strides, stream
-    "ssd_scan_launch": (_P,) * 10 + (_I,) * 6 + (_L,) * 8 + (_P,),
+    # x, dt, a, B, C, d_skip (or null), init (or null), workspace, its f32
+    # elements, y, final, B, T, H, P, N, chunk, x/dt/B/C batch and time
+    # strides, stream
+    "ssd_scan_launch": (_P,) * 8 + (_L,) + (_P,) * 2 + (_I,) * 6 + (_L,) * 8
+                       + (_P,),
+    # out, blocks, iters, stream: the rate of ssd_scan's MMA building block
+    "ssd_mma_probe": (_P, _I, _I, _P),
 }
 RESTYPES = {"kan_fused_scratch": _L}
 

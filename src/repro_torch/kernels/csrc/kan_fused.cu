@@ -70,8 +70,7 @@ constexpr int kTiles = kBN / 8;   // n8 tiles per consumer warp
 constexpr int kBK = 64;           // flattened (i, s) slots per k-block
 constexpr int kFlush = 2;         // k-blocks per f32 accumulator run
 constexpr int kBsStride = kBN + 8;  // bf16 B row, padded against conflicts
-constexpr int kMaxTaps = 4;       // K + 1 (cubic splines and below)
-constexpr int kMaxL = 256;        // levels per interval when n_bits <= 8
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 constexpr int kMasked = 0x7FFF;   // seg of a masked (b, i)
 constexpr int kNoSlot = 0x4000;   // s of a masked k: s - seg never a tap
 // named barriers: the producers among themselves; a slot is full (the
@@ -81,14 +80,15 @@ constexpr int kBarProducers = 1, kBarFull = 2, kBarEmpty = 4;
 constexpr size_t kSumBytes = size_t(kHalf) * kTiles * 4 * 8;
 constexpr size_t kBsBytes = size_t(kBK) * kBsStride * 2;
 constexpr size_t kStageBytes = size_t(2) * kBK * kBN;
-constexpr size_t kTabBytes = size_t(kMaxL) * kMaxTaps * 8;
 constexpr size_t kMapBytes = size_t(kBK) * 4;
 
 __host__ __device__ inline int span_max(int S) { return (kBK - 1) / S + 2; }
 
-inline size_t smem_bytes(int S) {
-  return kSumBytes + 2 * (kBsBytes + kMapBytes) + kStageBytes + kTabBytes +
-         2 * size_t(kBM) * span_max(S) * 4;
+// the fixed part, then the split tap table of L * (K+1) entries of 8 bytes,
+// sized from the config (kernels/kan_fused.py::smem_bytes mirrors this)
+inline size_t smem_bytes(int S, int L, int k1) {
+  return kSumBytes + 2 * (kBsBytes + kMapBytes) + kStageBytes +
+         2 * size_t(kBM) * span_max(S) * 4 + size_t(L) * k1 * 8;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -165,10 +165,9 @@ kan_fused_mma(const float* __restrict__ x, const int8_t* __restrict__ codes,
   unsigned char* rest = smem + kSumBytes;
   __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(rest);
   int8_t* stage = reinterpret_cast<int8_t*>(rest + 2 * kBsBytes);
-  uint2* tab = reinterpret_cast<uint2*>(rest + 2 * kBsBytes + kStageBytes);
-  int* kmap = reinterpret_cast<int*>(rest + 2 * kBsBytes + kStageBytes +
-                                     kTabBytes);
+  int* kmap = reinterpret_cast<int*>(rest + 2 * kBsBytes + kStageBytes);
   int* ent = kmap + 2 * kBK;
+  uint2* tab = reinterpret_cast<uint2*>(ent + 2 * kBM * smax);  // 8-aligned
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -461,7 +460,7 @@ int launch(const Plan& p, const float* x, const int8_t* codes,
            const float* scale, const float* hemi, float* y, double* scratch,
            int B, int I, int S, int O, int k1, int ld, int n_levels,
            int half, float x_min, float step, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S);
+  const size_t smem = smem_bytes(S, 1 << ld, k1);
   cudaError_t err = cudaFuncSetAttribute(
       kan_fused_mma<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -493,17 +492,19 @@ extern "C" long long kan_fused_scratch(int B, int I, int S, int O) {
 
 // x [B, I] f32, codes [I, S, O] int8, scale [O] f32, hemi [half, k1] f32,
 // y [B, O] f32, scratch kan_fused_scratch(B, I, S, O) f64 (may be null when
-// that is 0), all contiguous on the current device. Returns the first CUDA
-// error, else cudaGetLastError().
+// that is 0), all contiguous on the current device. Any K and L whose tap
+// table fits in shared memory beside the rest of the block's (L * (K+1) <=
+// 5184 at S = 10). Returns the first CUDA error, else cudaGetLastError().
 extern "C" int kan_fused_launch(const float* x, const int8_t* codes,
                                 const float* scale, const float* hemi,
                                 float* y, double* scratch, int B, int I, int S,
                                 int O, int k1, int ld, int n_levels, int half,
                                 float x_min, float step, void* stream) {
+  if (k1 < 1 || ld < 0 || ld > 14 || S < k1 || S < 2 || S >= kNoSlot ||
+      B < 1 || I < 1 || O < 1 || (long long)I * S > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
   const int L = 1 << ld;
-  if (k1 < 1 || k1 > kMaxTaps || ld < 0 || L > kMaxL || half < 1 ||
-      half != (L + 1) / 2 || S < k1 || S < 2 || B < 1 || I < 1 || O < 1 ||
-      (long long)I * S > (1LL << 30))
+  if (half != (L + 1) / 2 || smem_bytes(S, L, k1) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   Plan p;
   const cudaError_t err = plan(B, I, S, O, &p);

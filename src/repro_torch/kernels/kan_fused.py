@@ -19,8 +19,27 @@ import torch
 from repro_torch.core.quant import ASPConfig
 from repro_torch.kernels import build
 
-MAX_TAPS = 4      # K + 1 held per (b, i) by the kernel
-MAX_HALF = 128    # SH-LUT rows: L <= 256 levels per interval
+MAX_SMEM = 232_448   # bytes of shared memory a block may use on Hopper
+# the kernel's fixed shared memory (csrc/kan_fused.cu::smem_bytes): f64 sums
+# of 256 threads x 16 tiles x 4, two bf16 B slots of 64 x 136 and two slot
+# maps of 64 ints, the int8 code stage of 2 x 64 x 128
+_FIXED_SMEM = 256 * 16 * 4 * 8 + 2 * (64 * 136 * 2 + 64 * 4) + 2 * 64 * 128
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(asp: ASPConfig) -> int:
+    """Shared memory of one block for a config: the fixed part, the input
+    codes of two k-blocks (128 rows x the inputs a 64-slot k-block can
+    touch) and the split tap table, L x (K+1) entries of 8 bytes."""
+    span_max = 63 // asp.n_basis + 2
+    return (_FIXED_SMEM + 2 * 128 * span_max * 4
+            + asp.levels_per_interval * asp.n_taps * 8)
+
+
+def supported(asp: ASPConfig) -> bool:
+    """Whether the kernel takes this config: its tap table fits in shared
+    memory beside the rest of the block's (L x (K+1) <= 5184 at S = 10)."""
+    return smem_bytes(asp) <= MAX_SMEM
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,6 +68,11 @@ def kan_fused(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     b, i = x.shape
     o = codes.shape[-1]
     dev = x.device
+    if not supported(asp):
+        raise ValueError(
+            f"kan_fused: G={asp.grid_size}, K={asp.order}, L="
+            f"{asp.levels_per_interval} needs {smem_bytes(asp)} bytes of "
+            f"shared memory per block, over the {MAX_SMEM} a block may use")
     if dev.type != "cuda":
         raise ValueError("kan_fused: x must be on a CUDA device")
     for name, t, dtype in (("x", x, torch.float32), ("codes", codes, torch.int8),
@@ -62,10 +86,9 @@ def kan_fused(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     if codes.shape != (i, s_, o) or scale.shape != (o,):
         raise ValueError(f"kan_fused: codes {tuple(codes.shape)} / scale "
                          f"{tuple(scale.shape)} do not fit x {tuple(x.shape)}")
-    if hemi.shape != (half, k1) or not 1 <= k1 <= MAX_TAPS or half > MAX_HALF:
+    if hemi.shape != (half, k1):
         raise ValueError(f"kan_fused: SH-LUT {tuple(hemi.shape)} is not "
-                         f"[ceil(L/2), K+1] = [{half}, {k1}], or outside the "
-                         f"kernel's K+1 <= {MAX_TAPS}, rows <= {MAX_HALF}")
+                         f"[ceil(L/2), K+1] = [{half}, {k1}]")
     lib = build.load()
     y = torch.empty((b, o), dtype=torch.float32, device=dev)
     n_scratch = _scratch_size(dev.index, b, i, s_, o)

@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import quant as tq  # noqa: E402
+from repro_torch.kernels import kan_fused as tkf  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
 
 KAN_SHAPES = [(8, 8, 8), (37, 23, 50), (128, 64, 128), (5, 130, 3)]
@@ -39,6 +40,9 @@ KAN_EDGE_SHAPES = [(1, 16384, 108), (257, 16384, 108), (1, 1, 108),
                    (257, 1, 108), (1, 108, 1), (257, 108, 1),
                    (1, 108, 16384), (257, 108, 16384)]
 CF_KAN_1_SHAPES = {"enc": (256, 16384, 108), "dec": (256, 108, 16384)}
+# (G, K, n_bits) past cubic splines (K+1 = 5, 6 taps) and past 8-bit inputs
+# (L = 512 levels per interval): the kernel sizes its tap table from these
+WIDE_CONFIGS = [(7, 4, 8), (7, 5, 8), (1, 3, 9)]
 
 
 @pytest.fixture(scope="module")
@@ -58,9 +62,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kan_inputs(g, k, shape, seed):
+def _kan_inputs(g, k, shape, seed, n_bits=8):
     b, i, o = shape
-    cfg = tq.ASPConfig(grid_size=g, order=k)
+    cfg = tq.ASPConfig(grid_size=g, order=k, n_bits=n_bits)
     rng = np.random.default_rng(seed)
     x = rng.uniform(-1, 1, (b, i)).astype(np.float32)
     coeffs = (rng.normal(size=(i, cfg.n_basis, o)) * 0.3).astype(np.float32)
@@ -93,6 +97,55 @@ def test_kan_spline_plain_matches_jax_kernel(jx, g, k, shape):
     wrapped = tops.kan_spline_fused_deployed(torch.from_numpy(x), codes,
                                              scale, cfg)
     np.testing.assert_array_equal(wrapped.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("g,k,n_bits", WIDE_CONFIGS)
+def test_kan_spline_plain_matches_jax_kernel_wide_configs(jx, g, k, n_bits):
+    """The plain version at the configs the kernel now also takes."""
+    cfg, x, codes, scale = _kan_inputs(g, k, (37, 23, 50), seed=g + k,
+                                       n_bits=n_bits)
+    jcfg = jx.quant.ASPConfig(grid_size=g, order=k, n_bits=n_bits)
+    want = jx.ops.kan_spline_fused_deployed(
+        jx.jnp.asarray(x), jx.jnp.asarray(codes.numpy()),
+        jx.jnp.asarray(scale.numpy()), jcfg)
+    got = tref.kan_spline_ref(torch.from_numpy(x), codes, scale, cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("g,k,n_bits,fits", [
+    (7, 3, 8, True), (7, 4, 8, True), (7, 5, 8, True), (1, 3, 9, True),
+    (1, 7, 9, True), (4, 3, 12, True), (64, 2, 8, True),
+    (1, 3, 10, False), (1, 7, 10, False), (1, 3, 12, False)])
+def test_kan_fused_supported_follows_shared_memory(g, k, n_bits, fits):
+    """The kernel takes any config whose split tap table (L x (K+1)
+    entries of 8 bytes) fits beside the rest of the block's shared memory."""
+    cfg = tq.ASPConfig(grid_size=g, order=k, n_bits=n_bits)
+    span_max = 63 // cfg.n_basis + 2      # inputs a 64-slot k-block touches
+    assert tkf.smem_bytes(cfg) == (182_784 + 2 * 128 * span_max * 4
+                                   + cfg.levels_per_interval * cfg.n_taps * 8)
+    if (g, k, n_bits) == (7, 3, 8):       # CF-KAN-1
+        assert tkf.smem_bytes(cfg) == 192_000
+    assert tkf.supported(cfg) is fits
+    assert fits == (tkf.smem_bytes(cfg) <= tkf.MAX_SMEM)
+
+
+def test_kan_fused_names_the_shared_memory_limit():
+    """A config past shared memory raises before anything is launched,
+    with the limit in the message; the public wrapper serves it on the CPU
+    through the plain version."""
+    cfg, x, codes, scale = _kan_inputs(1, 3, (2, 3, 4), seed=0, n_bits=10)
+    assert not tkf.supported(cfg)
+    hemi = tq.hemi_for(cfg, "cpu")
+    before = tkf.kan_fused.launches
+    with pytest.raises(ValueError, match="shared memory.*232448"):
+        tkf.kan_fused(torch.from_numpy(x), codes, scale, hemi, asp=cfg)
+    assert tkf.kan_fused.launches == before
+    got = tops.kan_spline_fused_deployed(torch.from_numpy(x), codes, scale,
+                                         cfg)
+    np.testing.assert_array_equal(
+        got.numpy(), tref.kan_spline_ref(torch.from_numpy(x), codes, scale,
+                                         cfg).numpy())
 
 
 @pytest.mark.parametrize("array_size", [64, 128, 256])
@@ -211,3 +264,23 @@ def test_kan_fused_kernel_is_deterministic(cuda, layer):
     second = tops.kan_spline_fused_deployed(xt, ct, st, cfg)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KAN_EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("g,k,n_bits", WIDE_CONFIGS)
+def test_kan_fused_kernel_wide_configs(cuda, g, k, n_bits, shape):
+    """K = 4 and 5 at G = 7, and L = 512 at G = 1, n_bits = 9, at the
+    ragged shapes, against the plain formula in float64."""
+    cfg, x, codes, scale = _kan_inputs(g, k, shape, seed=sum(shape) + k,
+                                       n_bits=n_bits)
+    xt, ct, st = (torch.from_numpy(x).to(cuda), codes.to(cuda),
+                  scale.to(cuda))
+    before = tops.launch_counts()["kan_fused"]
+    got = tops.kan_spline_fused_deployed(xt, ct, st, cfg)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["kan_fused"] == before + 1
+    want = _kan_exact(xt, ct, st, cfg)
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want.cpu().numpy(), atol=2e-5, rtol=1e-5)

@@ -274,13 +274,26 @@ def test_ssd_config_has_no_pallas_flag():
 
 
 def test_kernel_shape_limits():
-    """P in slices of 8; the rest is bounded by shared memory."""
+    """P in whole n8 tiles; the grid tiles P and N, so only the chunk's
+    rows (its cs and dt in the chunk-scan block) bound shared memory."""
     assert tscan.supported(64, 128, 256)      # mamba2-1.3b
     assert tscan.supported(16, 16, 16) and tscan.supported(8, 16, 8)
+    assert tscan.supported(256, 512, 256)     # P, N past one block's tile
     assert not tscan.supported(12, 16, 16)    # P not a multiple of 8
-    assert not tscan.supported(64, 128, 8192)  # a chunk past shared memory
-    assert tscan.smem_bytes(64, 128, 256) == 4 * (16 * 128 + 256 * 16
-                                                  + 2 * 256)
+    assert not tscan.supported(64, 128, 32768)  # a chunk past shared memory
+    assert tscan.supported(64, 128, 20992) and not tscan.supported(
+        64, 128, 20993)
+    # the chunk-scan block: three raw A tiles, two split B tiles, cs and dt
+    assert tscan.smem_bytes(64, 128, 256) == (
+        4 * (3 * 64 * 36 + 2 * 256) + 8 * 2 * 64 * 36)
+    # scores [B, nc, cl, cl], chunk states [B, H, nc, P, N], cs, decays and
+    # B split into {big, small} pairs
+    assert tscan.workspace_floats(4, 2048, 64, 64, 128, 256) == (
+        4 * 8 * 256 * 256 + 4 * 64 * 8 * 64 * 128 + 4 * 64 * 8 * 256
+        + 4 * 64 * 8 + 2 * 4 * 2048 * 128)
+    # rows and columns rounded up to 4 (16-byte copies), regions too
+    assert tscan.workspace_floats(1, 37, 3, 8, 6, 10) == (
+        4 * 10 * 12 + 3 * 4 * 8 * 8 + 120 + 12 + 2 * 37 * 8)
 
 
 def test_wrapper_rejects_mixed_devices():
@@ -348,3 +361,34 @@ def test_ssd_kernel_rejects_unsupported_shapes(cuda):
     with pytest.raises(ValueError, match="not supported"):
         tops.ssd(*args, chunk=8)
     assert tscan.ssd_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [8, 24, 100])
+def test_ssd_kernel_chunks_off_the_mma_tile(cuda, chunk):
+    """Chunks that are no multiple of the 32-deep k-block or the 64-row
+    tile, at a T that is no multiple of the chunk."""
+    _kernel_vs_plain(cuda, (2, 300, 3, 16, 32), chunk, seed=chunk,
+                     init=True)
+    _kernel_vs_plain(cuda, (1, 300, 2, 64, 128), chunk, seed=chunk + 1,
+                     strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("p", [8, 16])
+def test_ssd_kernel_fragment_edges(cuda, p, n):
+    """P and N below one m16 / n8 fragment set: half-empty tiles."""
+    _kernel_vs_plain(cuda, (2, 100, 3, p, n), 32, seed=p + n, init=True)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_is_deterministic(cuda):
+    """No atomics: two launches on the same inputs are bitwise equal."""
+    arr = _t(_inputs((1, 512, 2, 64, 128), seed=4, init=True), cuda)
+    args = [arr[k] for k in ("x", "dt", "a", "b_mat", "c_mat", "d_skip")]
+    first = tops.ssd_state(*args, chunk=256, init_state=arr["init_state"])
+    second = tops.ssd_state(*args, chunk=256, init_state=arr["init_state"])
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
