@@ -24,10 +24,15 @@ Phases (any failed check raises, and the script exits non-zero):
    whole number of ADC steps, in under 0.1% of the outputs.
    ``cim_mac_tiled`` (As in 128..1024, Cc 64, gamma0 0.08, gains from
    ``variation.grid_gain`` at sigma 0.05, seed 0) takes the WL values in the
-   physical order that ``chip.place_layer`` gives them and must give
-   bit-identical int32 codes. Times come from CUDA events with the L2 cache
-   flushed before every launch (``Timer``); ``kan_fused``'s rows and its
-   library call's also give the device's time alone (``device_ms``,
+   physical order that ``chip.place_layer`` gives them (uniform mapping;
+   at As 256 also KAN-SAM from Phase-A stats on the first two batches, and
+   for the encoder seeded WL values with no zero, the dense worst case)
+   and must give bit-identical int32 codes, twice; each row prints the
+   share of (batch row, row) pairs whose terms the kernel formed, as its
+   second launch counted them (``rows_iterated``), and only the uniform
+   rows count toward its per-apply time. Times come from CUDA events with the
+   L2 cache flushed before every launch (``Timer``); ``kan_fused``'s rows
+   and its library call's also give the device's time alone (``device_ms``,
    ``library_device_ms``) and the host's time per call (``host_ms``,
    ``library_host_ms``). ``bound_ms`` is the larger of bytes over
    3.35 TB/s and operations over the peak of their type (H100 SXM data
@@ -112,6 +117,7 @@ from repro_torch.core import kan, kan_sam, quant  # noqa: E402
 from repro_torch.data import cf_synth, lm_synth  # noqa: E402
 from repro_torch.hw import chip, cim, tiles, variation  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import cim_mac as cim_kernels  # noqa: E402
 from repro_torch.models import cf_kan, layers  # noqa: E402
 from repro_torch.models import ssd as ssd_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -319,12 +325,16 @@ def chip_cfg(array_size, gamma0=GAMMA0, seed=0):
         variation=variation.VariationConfig(sigma=SIGMA, seed=seed))
 
 
-def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size):
+def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size,
+                        crit=None, on_path=None):
     """wl: WL values [B, R] in logical order; codes: the layer's [I, S, O]
-    int8 codes, placed (uniform mapping) as the cim_tiled deploy places
-    them, so the kernel sees the main path's physical-order inputs."""
+    int8 codes, placed (uniform mapping, or KAN-SAM from ``crit``) as the
+    cim_tiled deploy places them, so the kernel sees the main path's
+    physical-order inputs. A second launch must give the same codes. The
+    row counts toward the kernel's per-apply time if ``on_path`` (by
+    default: at the main path's As)."""
     ccfg = chip_cfg(array_size)
-    tiled = chip.place_layer(codes, None, ccfg, layer_uid=layer_uid)
+    tiled = chip.place_layer(codes, crit, ccfg, layer_uid=layer_uid)
     v = torch.where(tiled.valid, wl[:, tiled.logical_of_phys.long()], 0.0)
     w, g = tiled.w_phys, tiled.gain
     tile = ccfg.tile
@@ -337,6 +347,13 @@ def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size):
     n_off = int((got != want).sum())
     check(n_off == 0, f"cim_mac_tiled {label}: {n_off} codes differ from "
           "the plain version")
+    # a second launch, which counts the (b, r) pairs it iterated
+    counter = torch.zeros(1, dtype=torch.int64, device=v.device)
+    lsb = array_size * tile.adc_in_scale / (2 ** tile.adc_bits - 1)
+    again = cim_kernels.cim_mac_tiled(v, w, g, att, array_size=array_size,
+                                      lsb=lsb, rows_iterated=counter)
+    check(torch.equal(got, again),
+          f"cim_mac_tiled {label}: two launches on the same inputs differ")
     b, r = v.shape
     c = w.shape[1]
     mag = w.to(torch.int32).abs()
@@ -358,7 +375,9 @@ def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size):
                plain_ms=timer.ms(lambda: ref.cim_mac_tiled_ref(
                    v, w, g, att, array_size, tile.adc_bits,
                    tile.adc_in_scale), reps=3, warmup=1),
-               library_ms=None)
+               library_ms=None,
+               on_path=array_size == SERVE_AS if on_path is None else on_path,
+               rows_iterated=int(counter) / (b * r))
     row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
     return row
 
@@ -850,6 +869,8 @@ def main() -> int:
                             enc.hemi)
          + kan.base_branch(xe, enc.w_base, "relu"))
     xd = kan.bound_input(h, asp_d)
+    stats_3 = cf_kan.collect_layer_stats(
+        params, [x_all[:BATCH], x_all[BATCH:2 * BATCH]], cfg_fused)
     rows = {"kan_fused": [check_kan_fused(timer, "enc", xe, enc, asp_e),
                           check_kan_fused(timer, "dec", xd, dec, asp_d)],
             "cim_mac": [], "cim_mac_tiled": []}
@@ -863,12 +884,30 @@ def main() -> int:
                 check_cim_mac(timer, f"{label} As={a}", wl, w, a))
             rows["cim_mac_tiled"].append(check_cim_mac_tiled(
                 timer, f"{label} As={a}", wl, layer.codes, uid, a))
+        # KAN-SAM placement from the main path's Phase-A stats, and (for
+        # the encoder) WL values with no zero, where every row is live
+        crit = kan_sam.criticality(stats_3[label], layer.codes).reshape(-1)
+        rows["cim_mac_tiled"].append(check_cim_mac_tiled(
+            timer, f"{label} As={SERVE_AS} KAN-SAM", wl, layer.codes, uid,
+            SERVE_AS, crit=crit, on_path=False))
+        if label == "enc":
+            gen = torch.Generator(device=dev).manual_seed(0)
+            dense = cim.quantize_wl(1 / 255 + (1 - 1 / 255) * torch.rand(
+                wl.shape, generator=gen, device=dev), 8)
+            check(bool((dense > 0).all()), "dense WL values hold a zero")
+            rows["cim_mac_tiled"].append(check_cim_mac_tiled(
+                timer, f"{label} As={SERVE_AS} dense", dense, layer.codes,
+                uid, SERVE_AS, on_path=False))
+            del dense
+    del stats_3
     for kname, krows in rows.items():
         for r in krows:
+            listed = (f", rows iterated {r['rows_iterated']:.4f}"
+                      if "rows_iterated" in r else "")
             print(f"kernel {kname} {r['shape']}: max|err| "
                   f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
-                  f"{r['bound_ms']:.4f} by {r['bound_by']})")
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}{listed})")
 
     # 4a. the main path through fused and cim, with the launch counts
     # zeroed just before and read just after

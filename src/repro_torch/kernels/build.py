@@ -38,8 +38,10 @@ SIGNATURES = {
     "kan_fused_scratch": (_I, _I, _I, _I),
     # v, w, atten, out, B, R, C, array_size, lsb, stream
     "cim_mac_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # v, w, gain (or null), atten, out, B, R, C, array_size, lsb, stream
-    "cim_mac_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # v, w, gain (or null), atten, out, rows_iterated (or null), B, R, C,
+    # array_size, lsb, stream
+    "cim_mac_tiled_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                             _P),
     # x, dt, a, B, C, d_skip (or null), init (or null), workspace, its f32
     # elements, y, final, B, T, H, P, N, chunk, x/dt/B/C batch and time
     # strides, stream

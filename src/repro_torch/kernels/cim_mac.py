@@ -59,11 +59,17 @@ cim_mac.launches = 0
 
 def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
                   gain: Optional[torch.Tensor], row_atten: torch.Tensor, *,
-                  array_size: int, lsb: float) -> torch.Tensor:
+                  array_size: int, lsb: float,
+                  rows_iterated: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Launch the kernel: v [B, R] f32, w_codes [R, C] int8, gain [R, C]
     f32 or None (ideal cells), row_atten [R] f32, all contiguous on one CUDA
     device, R a multiple of ``array_size``; ``lsb`` is the ADC step. Returns
-    [B, C] int32 codes summed over row tiles. Counts each launch in
+    [B, C] int32 codes summed over row tiles. If ``rows_iterated`` (an int64
+    [1] tensor on v's device) is given, the kernel adds to it the (batch
+    row, row) pairs whose terms it formed, the padding of its live-row
+    lists included: about B * R when every row is live, fewer where rows
+    are dead for a whole group of batch rows. Counts each launch in
     ``cim_mac_tiled.launches``."""
     b, r = v.shape
     c = w_codes.shape[-1]
@@ -71,9 +77,12 @@ def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
                    row_atten=(row_atten, torch.float32))
     if gain is not None:
         tensors["gain"] = (gain, torch.float32)
+    if rows_iterated is not None:
+        tensors["rows_iterated"] = (rows_iterated, torch.int64)
     _check_inputs("cim_mac_tiled", v.device, **tensors)
     if (w_codes.shape != (r, c) or row_atten.shape != (r,)
             or (gain is not None and gain.shape != (r, c))
+            or (rows_iterated is not None and rows_iterated.shape != (1,))
             or array_size < 1 or r % array_size):
         raise ValueError(f"cim_mac_tiled: w_codes {tuple(w_codes.shape)} / "
                          f"atten {tuple(row_atten.shape)} / array_size "
@@ -84,7 +93,9 @@ def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
     build.check(lib.cim_mac_tiled_launch(
         v.data_ptr(), w_codes.data_ptr(),
         None if gain is None else gain.data_ptr(), row_atten.data_ptr(),
-        out.data_ptr(), b, r, c, array_size, lsb, stream),
+        out.data_ptr(),
+        None if rows_iterated is None else rows_iterated.data_ptr(),
+        b, r, c, array_size, lsb, stream),
         "cim_mac_tiled launch")
     cim_mac_tiled.launches += 1
     return out

@@ -712,10 +712,12 @@ def test_cf_kan_cim_tiled_scores_and_metrics_match(jx, cf_slice, variant):
 # ---------------------------------------------------------------------------
 
 # (B, R, C, As, with gain): the suite's shape, ragged B and C, one tile,
-# ideal cells (gain None)
+# ideal cells (gain None), As 1024 (four 256-row lists per tile) with B
+# not a multiple of the kernel's 16-row batch group
 KERNEL_CASES = [(9, 96, 20, 32, True), (37, 640, 72, 128, True),
                 (5, 64, 33, 64, True), (16, 256, 40, 64, False),
-                (256, 2048, 128, 256, True)]
+                (256, 2048, 128, 256, True), (250, 4096, 128, 1024, True),
+                (33, 2048, 40, 1024, False)]
 
 
 @pytest.mark.cuda
@@ -744,3 +746,80 @@ def test_cim_mac_tiled_kernel_matches_plain(cuda, b, r, c, array_size,
                                   tile.adc_in_scale)
     assert got.dtype == torch.int32 and got.shape == (b, c)
     assert torch.equal(got, want)
+    # row tiles split across blocks sum by atomics: still repeatable
+    assert torch.equal(tops.cim_mac_tiled(v, w, att, gain=gain, **kw), got)
+
+
+def _structured_wl(rng, b, n_inputs, n_slots=10, n_live=4, spread=0.1):
+    """WL values shaped as a KAN layer's quantised basis: per input, n_live
+    adjacent slots of n_slots are nonzero (levels k/255). Most batch rows
+    share an input's slots, as CF-KAN's 0/1 encoder inputs do; a share
+    ``spread`` of (b, input) pairs takes another start slot."""
+    start = np.broadcast_to(rng.integers(0, n_slots - n_live + 1, n_inputs),
+                            (b, n_inputs)).copy()
+    moved = rng.random((b, n_inputs)) < spread
+    start[moved] = rng.integers(0, n_slots - n_live + 1, int(moved.sum()))
+    v = np.zeros((b, n_inputs, n_slots), dtype=np.float32)
+    for j in range(n_live):
+        np.put_along_axis(v, (start + j)[..., None],
+                          rng.integers(1, 256, (b, n_inputs, 1)) / 255.0, -1)
+    return v.reshape(b, -1)
+
+
+# (inputs, B, R, C, As): structured-sparse WL values at CF-KAN's encoder
+# and decoder shapes cut to size (the decoder's 108 inputs x 10 slots and
+# its 200 padding rows, dead), As 1024; codes of +-127 and -128 (bit 7); a
+# tile dead for every batch row with rows live for one batch row only
+STRUCTURED_CASES = [("wl", 256, 2560, 128, 256),
+                    ("wl_padded", 200, 1280, 300, 256),
+                    ("wl", 64, 4096, 128, 1024),
+                    ("extreme", 37, 1024, 72, 128),
+                    ("dead_tile", 50, 1024, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs,b,r,c,array_size", STRUCTURED_CASES)
+def test_cim_mac_tiled_kernel_on_structured_inputs(cuda, inputs, b, r, c,
+                                                   array_size):
+    rng = np.random.default_rng(b + r + c)
+    tile = ttiles.TileConfig(array_size=array_size, tile_cols=64,
+                             gamma0=0.08)
+    w = rng.integers(-127, 128, (r, c)).astype(np.int8)
+    if inputs.startswith("wl"):
+        v = np.zeros((b, r), dtype=np.float32)
+        n_in = (r - 200 if inputs == "wl_padded" else r) // 10
+        v[:, :10 * n_in] = _structured_wl(rng, b, n_in)
+    elif inputs == "extreme":
+        v = rng.random((b, r), dtype=np.float32)
+        v[rng.random((b, r)) < 0.6] = 0.0
+        w[rng.random((r, c)) < 0.1] = -128
+        w[rng.random((r, c)) < 0.1] = 127
+        w[rng.random((r, c)) < 0.1] = -127
+    else:
+        v = rng.random((b, r), dtype=np.float32)
+        v[rng.random((b, r)) < 0.7] = 0.0
+        v[:, array_size:2 * array_size] = 0.0
+        for i, row in enumerate((3, 2 * array_size + 5, r - 1)):
+            v[:, row] = 0.0
+            v[(5 * i + 1) % b, row] = 0.75
+    tr, tc = ttiles.grid_shape(r, c, tile)
+    gain = ttiles.unpack_image(tvar.grid_gain(
+        tvar.VariationConfig(sigma=0.05, seed=0), 0, tr, tc, array_size, 64),
+        tile)[:, :c].contiguous().to(cuda)
+    v_t = torch.from_numpy(v).to(cuda)
+    w_t = torch.from_numpy(w).to(cuda)
+    att = ttiles.slot_attenuation(r, tile, cuda)
+    kw = dict(array_size=array_size, adc_bits=8, in_scale=tile.adc_in_scale)
+    got = tops.cim_mac_tiled(v_t, w_t, att, gain=gain, **kw)
+    again = tops.cim_mac_tiled(v_t, w_t, att, gain=gain, **kw)
+    want = tref.cim_mac_tiled_ref(v_t, w_t, gain, att, array_size, 8,
+                                  tile.adc_in_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+    if inputs == "extreme":
+        assert bool((w_t == -128).any())
+    if inputs == "dead_tile":
+        codes = tref.cim_mac_tiled_codes(v_t, w_t, gain, att, array_size, 8,
+                                         tile.adc_in_scale)
+        assert not bool(codes[:, 1].any()) and bool(codes[:, 0].any())
