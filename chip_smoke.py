@@ -17,11 +17,17 @@ Phases (any failed check raises, and the script exits non-zero):
    launch on the same inputs must give bitwise the same output; its rows
    also report the kernel's and the plain version's distance from the
    exact (float64) sum in units of ``atol 2e-5 + rtol 1e-5``.
-   ``cim_mac`` (As in 128..1024, gamma0 0.08) is held to ``atol 2e-3,
-   rtol 1e-4`` (the JAX suite's bar, set at R <= 256) plus the same
-   ``1e-6 * sum|terms|``, the terms being ``2^k * readout`` over up to 1280
-   arrays x 8 slices summed in another order; a larger difference must be a
-   whole number of ADC steps, in under 0.1% of the outputs.
+   ``cim_mac`` (As in 128..1024, gamma0 0.08; at As 256 also, for the
+   encoder, seeded WL values with no zero, the dense worst case) is held to
+   ``atol 2e-3, rtol 1e-4`` (the JAX suite's bar, set at R <= 256) plus the
+   same ``1e-6 * sum|terms|``, the terms being ``2^k * readout`` over up to
+   1280 arrays x 8 slices summed in another order; a larger difference must
+   be a whole number of ADC steps, in under 0.1% of the outputs. A second
+   launch on the same inputs must give bitwise the same output; each row
+   prints the share of (batch row, row) pairs whose terms the kernel
+   formed, as that launch counted them (``rows_iterated``), and only the
+   rows at the main path's As with the main path's inputs count toward its
+   per-apply time.
    ``cim_mac_tiled`` (As in 128..1024, Cc 64, gamma0 0.08, gains from
    ``variation.grid_gain`` at sigma 0.05, seed 0) takes the WL values in the
    physical order that ``chip.place_layer`` gives them (uniform mapping;
@@ -266,8 +272,11 @@ def check_kan_fused(timer, label, x, layer, asp):
     return row
 
 
-def check_cim_mac(timer, label, v, w, array_size):
-    """v: WL values [B, R]; w: codes [R, C]; uniform row attenuation."""
+def check_cim_mac(timer, label, v, w, array_size, on_path=None):
+    """v: WL values [B, R]; w: codes [R, C]; uniform row attenuation. A
+    second launch must give the same output. The row counts toward the
+    kernel's per-apply time if ``on_path`` (by default: at the main path's
+    As)."""
     ccfg = cim.CIMConfig(array_size=array_size, gamma0=GAMMA0)
     att = cim.row_attenuation(w.shape[0], ccfg, v.device)
     kw = dict(array_size=array_size, adc_bits=ccfg.adc_bits,
@@ -297,6 +306,12 @@ def check_cim_mac(timer, label, v, w, array_size):
     share = float(off.float().mean())
     check(share < CIM_MAX_STEP_SHARE,
           f"cim_mac {label}: {share:.3%} of outputs off by ADC steps")
+    # a second launch, which counts the (b, r) pairs it iterated
+    counter = torch.zeros(1, dtype=torch.int64, device=v.device)
+    again = cim_kernels.cim_mac(v, w, att, array_size=array_size, lsb=lsb,
+                                rows_iterated=counter)
+    check(torch.equal(got, again),
+          f"cim_mac {label}: two launches on the same inputs differ")
     b, r = v.shape
     c = w.shape[1]
     mag = w.to(torch.int32).abs()
@@ -313,7 +328,9 @@ def check_cim_mac(timer, label, v, w, array_size):
                plain_ms=timer.ms(lambda: ref.cim_mac_ref(
                    v, w, att, array_size, ccfg.adc_bits, ccfg.adc_in_scale),
                    reps=3, warmup=1),
-               library_ms=None)
+               library_ms=None,
+               on_path=array_size == SERVE_AS if on_path is None else on_path,
+               rows_iterated=int(counter) / (b * r))
     row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
     return row
 
@@ -895,6 +912,9 @@ def main() -> int:
             dense = cim.quantize_wl(1 / 255 + (1 - 1 / 255) * torch.rand(
                 wl.shape, generator=gen, device=dev), 8)
             check(bool((dense > 0).all()), "dense WL values hold a zero")
+            rows["cim_mac"].append(check_cim_mac(
+                timer, f"{label} As={SERVE_AS} dense", dense, w, SERVE_AS,
+                on_path=False))
             rows["cim_mac_tiled"].append(check_cim_mac_tiled(
                 timer, f"{label} As={SERVE_AS} dense", dense, layer.codes,
                 uid, SERVE_AS, on_path=False))

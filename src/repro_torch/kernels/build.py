@@ -5,8 +5,9 @@ all started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``. No ``--use_fast_math``:
 the kernels rely on IEEE division and ``rintf``. The library goes to
 ``kernels/build/`` (ignored by git) under a name keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-at once. Nothing is built or loaded until a kernel is first launched.
+sources, the headers they include (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+Nothing is built or loaded until a kernel is first launched.
 """
 from __future__ import annotations
 
@@ -36,8 +37,11 @@ SIGNATURES = {
                          _I, _F, _F, _P),
     # B, I, S, O -> f64 elements of scratch that kan_fused_launch needs
     "kan_fused_scratch": (_I, _I, _I, _I),
-    # v, w, atten, out, B, R, C, array_size, lsb, stream
-    "cim_mac_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # v, w, atten, out, scratch (or null), rows_iterated (or null), B, R, C,
+    # array_size, lsb, stream
+    "cim_mac_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # B, R, C, array_size -> f32 elements of scratch that cim_mac_launch needs
+    "cim_mac_scratch": (_I, _I, _I, _I),
     # v, w, gain (or null), atten, out, rows_iterated (or null), B, R, C,
     # array_size, lsb, stream
     "cim_mac_tiled_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -50,7 +54,7 @@ SIGNATURES = {
     # out, blocks, iters, stream: the rate of ssd_scan's MMA building block
     "ssd_mma_probe": (_P, _I, _I, _P),
 }
-RESTYPES = {"kan_fused_scratch": _L}
+RESTYPES = {"kan_fused_scratch": _L, "cim_mac_scratch": _L}
 
 
 def _nvcc() -> str:
@@ -67,7 +71,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"

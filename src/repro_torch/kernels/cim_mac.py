@@ -1,5 +1,6 @@
 """Bit-sliced RRAM-ACIM MACs: the wrappers of the hand-written CUDA kernels
-``csrc/cim_mac.cu`` and ``csrc/cim_mac_tiled.cu`` (port of the TPU kernels
+``csrc/cim_mac.cu`` and ``csrc/cim_mac_tiled.cu``, two instantiations of
+the body in ``csrc/cim_mac_common.cuh`` (port of the TPU kernels
 ``repro.kernels.cim_mac``'s ``cim_mac`` and ``cim_mac_tiled``).
 
 Every KAN layer's crossbar MAC is simulated bit slice by bit slice with
@@ -30,26 +31,39 @@ def _check_inputs(what: str, device: torch.device, **tensors) -> None:
 
 
 def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,
-            *, array_size: int, lsb: float) -> torch.Tensor:
+            *, array_size: int, lsb: float,
+            rows_iterated: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel: v [B, R] f32, w_codes [R, C] int8, row_atten [R]
-    f32, all contiguous on one CUDA device; ``lsb`` is the ADC step (rounded
-    to f32 here, as the reference rounds its Python float). Returns [B, C]
-    f32. Counts each launch in ``cim_mac.launches``."""
+    f32, all contiguous on one CUDA device; a ragged last array counts as
+    dead rows. ``lsb`` is the ADC step (rounded to f32 here, as the
+    reference rounds its Python float). Returns [B, C] f32. If
+    ``rows_iterated`` (an int64 [1] tensor on v's device) is given, the
+    kernel adds to it the (batch row, row) pairs whose terms it formed, as
+    ``cim_mac_tiled`` does. Counts each launch in ``cim_mac.launches``."""
     b, r = v.shape
     c = w_codes.shape[-1]
-    _check_inputs("cim_mac", v.device, v=(v, torch.float32),
-                  w_codes=(w_codes, torch.int8),
-                  row_atten=(row_atten, torch.float32))
-    if w_codes.shape != (r, c) or row_atten.shape != (r,) or array_size < 1:
+    tensors = dict(v=(v, torch.float32), w_codes=(w_codes, torch.int8),
+                   row_atten=(row_atten, torch.float32))
+    if rows_iterated is not None:
+        tensors["rows_iterated"] = (rows_iterated, torch.int64)
+    _check_inputs("cim_mac", v.device, **tensors)
+    if (w_codes.shape != (r, c) or row_atten.shape != (r,) or array_size < 1
+            or (rows_iterated is not None and rows_iterated.shape != (1,))):
         raise ValueError(f"cim_mac: w_codes {tuple(w_codes.shape)} / atten "
                          f"{tuple(row_atten.shape)} do not fit v "
                          f"{tuple(v.shape)}")
     lib = build.load()
     out = torch.empty((b, c), dtype=torch.float32, device=v.device)
+    # the per-part sums where the launch splits the arrays across blocks
+    n_scratch = lib.cim_mac_scratch(b, r, c, array_size)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=v.device)
+               if n_scratch else None)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     build.check(lib.cim_mac_launch(
         v.data_ptr(), w_codes.data_ptr(), row_atten.data_ptr(),
-        out.data_ptr(), b, r, c, array_size, lsb, stream), "cim_mac launch")
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        None if rows_iterated is None else rows_iterated.data_ptr(),
+        b, r, c, array_size, lsb, stream), "cim_mac launch")
     cim_mac.launches += 1
     return out
 

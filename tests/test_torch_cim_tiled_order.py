@@ -1,27 +1,37 @@
-"""The order of the ``cim_mac_tiled`` CUDA kernel, rehearsed on the CPU.
+"""The order of the crossbar MAC CUDA kernels, rehearsed on the CPU.
 
-``csrc/cim_mac_tiled.cu`` cannot run without a card. ``kernel_order`` below
-is a plain-torch copy of its arithmetic in its order:
+``csrc/cim_mac_tiled.cu`` and ``csrc/cim_mac.cu`` are two instantiations
+of one kernel body (``csrc/cim_mac_common.cuh``) and cannot run without a
+card. ``walk_array`` below is a plain-torch copy of that body's
+arithmetic in its order, for one array of one group of batch rows:
 
-* per group of ``GROUP`` batch rows and chunk of up to ``CHUNK`` rows of a
-  tile, only the rows live for any of the group's batch rows
+* per group of ``GROUP`` batch rows and chunk of up to ``CHUNK`` rows of an
+  array, only the rows live for any of the group's batch rows
   (``fl(v * atten) != 0``), in row order, padded to whole ``AHEAD`` steps
-  with rows of va = 0 (the three read from the kernel's source);
+  with rows of va = 0 (the blocking read from the kernel's source); a
+  ragged last array stops at R;
 * the sign folded into the gain once per cell;
 * one predicated add per set bit; planes 6 and 7 skipped where no column
   of the row's 32-column warp has them set; a plane the warp never met in
-  a tile read as code 0;
-* the row tiles split into parts, each part's codes summed in int32 and
-  the parts added in reverse order;
+  an array read as 0;
 * the ADC as rint(psum / lsb), which the kernel reads without a divide
   where its margin test passes (``adc_margin_rule`` below rehearses that).
 
-It is held bit for bit to the port's plain version
-(``ref.cim_mac_tiled_ref``) and to the JAX package's oracle
-(``tiles.readout_codes(...).sum(-2)``) on sparse and dense inputs. This is
-what makes skipping dead rows (a), folding the sign (b) and splitting the
-row tiles (c) exact. On a card, the kernel's own count of the rows it
-iterated is held to the copy's.
+``kernel_order`` (``cim_mac_tiled``) sums each array's int32 codes over
+parts of the arrays, the parts added in reverse order. ``readout_order``
+(``cim_mac``) sums each array's f32 readouts ``2^k * fl(n_k * lsb)`` over
+the planes in order, and ``sum_over_arrays`` adds the arrays of each part
+in order and the parts in part order, split as the launcher splits them
+(``launch_split``).
+
+They are held bit for bit to the port's plain versions
+(``ref.cim_mac_tiled_ref``; ``ref.cim_mac_ref``'s readouts, read off one
+array and one bit plane at a time) and to the JAX package's oracles
+(``tiles.readout_codes(...).sum(-2)``; ``ops.cim_mac`` in interpret mode
+at the JAX suite's bar) on sparse and dense inputs. This is what makes
+skipping dead rows (a), folding the sign (b) and splitting the arrays
+(c, d) exact. On a card, each kernel's own count of the rows it iterated
+is held to the copy's, and ``cim_mac``'s output to its copy's bit for bit.
 """
 import dataclasses
 import re
@@ -43,16 +53,19 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import cf_kan as tcf  # noqa: E402
 
 
-def _kernel_blocking(names=("kGroup", "kChunk", "kAhead")):
-    """The kernel's batch rows per block, rows per live-row list and rows
-    loaded ahead, as its source states them."""
-    text = (tbuild.CSRC / "cim_mac_tiled.cu").read_text()
+def _kernel_blocking(names=("kGroup", "kChunk", "kAhead", "kColWarps",
+                            "kBlocksPerSm")):
+    """The kernels' batch rows per block, rows per live-row list, rows
+    loaded ahead, 32-column warps per block and blocks per SM aimed at when
+    the arrays are split, as their shared source states them."""
+    text = (tbuild.CSRC / "cim_mac_common.cuh").read_text()
     return tuple(int(re.search(rf"constexpr int {n} = (\d+);", text)[1])
                  for n in names)
 
 
-GROUP, CHUNK, AHEAD = _kernel_blocking()
+GROUP, CHUNK, AHEAD, COL_WARPS, BLOCKS_PER_SM = _kernel_blocking()
 IN_SCALE = 0.2
+H100_SMS = 132
 
 
 @pytest.fixture(scope="module")
@@ -63,29 +76,67 @@ def jtiles():
     return tiles
 
 
+def _warp_or(mag):
+    """The OR of each row's code magnitudes over its 32-column warp, per
+    column: [R, C]."""
+    r, c = mag.shape
+    cw = -(-c // 32) * 32
+    lanes = torch.nn.functional.pad(mag, (0, cw - c)).reshape(r, -1, 32)
+    acc = torch.zeros_like(lanes[:, :, 0])
+    for lane in range(32):
+        acc = acc | lanes[:, :, lane]
+    return acc.repeat_interleave(32, dim=1)[:, :c]
+
+
+def walk_array(va, sg, mag, warp_or, r_begin, r_end):
+    """One array (rows r_begin..r_end, r_end at most R) of one batch group
+    in the kernel's order. va: the group's [g, R] fl(v * atten); sg: [R, C]
+    sign folded into the gain; mag: [R, C] code magnitudes. Returns the
+    eight planes' psums [8, g, C], the planes met [C] (bit k for plane k)
+    and the (batch row, row) pairs whose terms it formed."""
+    g, c = va.shape[0], sg.shape[1]
+    ps = torch.zeros((8, g, c), dtype=torch.float32)
+    planes = torch.zeros((c,), dtype=torch.int32)
+    n_rows = 0
+    for r0 in range(r_begin, r_end, CHUNK):
+        rows = torch.arange(r0, min(r0 + CHUNK, r_end))
+        listed = rows[(va[:, rows] != 0).any(dim=0)].tolist()
+        pad = -len(listed) % AHEAD
+        n_rows += len(listed) + pad
+        for row, live in [(x, True) for x in listed] + [(r0, False)] * pad:
+            a = va[:, row] if live else torch.zeros(g)
+            term = a[:, None] * sg[row][None, :]
+            orm = warp_or[row]
+            planes = planes | orm
+            for k in range(8):
+                on = ((mag[row] >> k) & 1).bool()
+                if k >= 6:
+                    on = on & ((orm >> k) & 1).bool()
+                ps[k] = torch.where(on[None, :], ps[k] + term, ps[k])
+    return ps, planes, n_rows * g
+
+
+def _walk_inputs(v, w, gain, atten):
+    code = w.to(torch.int32)
+    mag = code.abs()
+    g = (torch.ones(code.shape, dtype=torch.float32) if gain is None
+         else gain.to(torch.float32))
+    sg = torch.where(code < 0, -g, g)                         # (b)
+    va = v.to(torch.float32) * atten.to(torch.float32)[None, :]
+    return va, sg, mag, _warp_or(mag)
+
+
 def kernel_order(v, w, gain, atten, array_size, lsb, parts):
-    """The kernel's arithmetic in the kernel's order. v [B, R] f32, w
-    [R, C] int8, gain [R, C] f32 or None, atten [R]. Returns [B, C] int32
+    """``cim_mac_tiled``'s arithmetic in the kernel's order. v [B, R] f32,
+    w [R, C] int8, gain [R, C] f32 or None, atten [R]. Returns [B, C] int32
     and the (batch row, row) pairs whose terms it formed, padding rows
     included (what the kernel's ``rows_iterated`` counts)."""
     b, r = v.shape
     c = w.shape[1]
-    n_tiles = r // array_size
+    n_tiles = -(-r // array_size)
     per = -(-n_tiles // parts)
-    code = w.to(torch.int32)
-    mag = code.abs()
-    g = (torch.ones((r, c), dtype=torch.float32) if gain is None
-         else gain.to(torch.float32))
-    sg = torch.where(code < 0, -g, g)                         # (b)
-    # the OR of each row's codes over its 32-column warp, per column
-    cw = -(-c // 32) * 32
-    warp_or = torch.nn.functional.pad(mag, (0, cw - c)).reshape(r, -1, 32)
-    acc = torch.zeros_like(warp_or[:, :, 0])
-    for lane in range(32):
-        acc = acc | warp_or[:, :, lane]
-    warp_or = acc.repeat_interleave(32, dim=1)[:, :c]          # [R, C]
+    va_all, sg, mag, warp_or = _walk_inputs(v, w, gain, atten)
     lsb_t = torch.full((), lsb, dtype=torch.float32)
-    va_all = v.to(torch.float32) * atten.to(torch.float32)[None, :]
     out = torch.zeros((b, c), dtype=torch.int32)
     pairs = 0
     for b0 in range(0, b, GROUP):
@@ -94,26 +145,10 @@ def kernel_order(v, w, gain, atten, array_size, lsb, parts):
         for p in range(parts):
             part = torch.zeros((va.shape[0], c), dtype=torch.int32)
             for t in range(p * per, min(n_tiles, (p + 1) * per)):
-                ps = torch.zeros((8, va.shape[0], c), dtype=torch.float32)
-                planes = torch.zeros((c,), dtype=torch.int32)
-                t_end = (t + 1) * array_size
-                for r0 in range(t * array_size, t_end, CHUNK):
-                    rows = torch.arange(r0, min(r0 + CHUNK, t_end))
-                    listed = rows[(va[:, rows] != 0).any(dim=0)].tolist()
-                    pad = -len(listed) % AHEAD
-                    pairs += (len(listed) + pad) * va.shape[0]
-                    for row, live in ([(x, True) for x in listed]
-                                      + [(r0, False)] * pad):
-                        a = va[:, row] if live else torch.zeros(va.shape[0])
-                        term = a[:, None] * sg[row][None, :]
-                        orm = warp_or[row]
-                        planes = planes | orm
-                        for k in range(8):
-                            on = ((mag[row] >> k) & 1).bool()
-                            if k >= 6:
-                                on = on & ((orm >> k) & 1).bool()
-                            ps[k] = torch.where(on[None, :], ps[k] + term,
-                                                ps[k])
+                ps, planes, n = walk_array(va, sg, mag, warp_or,
+                                           t * array_size,
+                                           min(r, (t + 1) * array_size))
+                pairs += n
                 for k in range(8):
                     q = torch.round(ps[k] / lsb_t).to(torch.int32)
                     met = ((planes >> k) & 1).bool()[None, :]
@@ -122,6 +157,66 @@ def kernel_order(v, w, gain, atten, array_size, lsb, parts):
         for part in reversed(part_sums):                      # (c)
             out[b0:b0 + GROUP] += part
     return out, pairs
+
+
+def readout_order(v, w, atten, array_size, lsb):
+    """``cim_mac``'s arithmetic per array in the kernel's order (ideal
+    cells). Returns the readouts fl(n_k * lsb) [8, B, T, C] of the T
+    arrays, each array's sum over the planes its warp met of
+    fl(2^k * readout_k) in plane order [B, T, C], and the (batch row, row)
+    pairs whose terms it formed."""
+    b, r = v.shape
+    c = w.shape[1]
+    n_arrays = -(-r // array_size)
+    va_all, sg, mag, warp_or = _walk_inputs(v, w, None, atten)
+    lsb_t = torch.full((), lsb, dtype=torch.float32)
+    readouts = torch.zeros((8, b, n_arrays, c), dtype=torch.float32)
+    sums = torch.zeros((b, n_arrays, c), dtype=torch.float32)
+    pairs = 0
+    for b0 in range(0, b, GROUP):
+        va = va_all[b0:b0 + GROUP]
+        for t in range(n_arrays):
+            ps, planes, n = walk_array(va, sg, mag, warp_or, t * array_size,
+                                       min(r, (t + 1) * array_size))
+            pairs += n
+            s = torch.zeros((va.shape[0], c), dtype=torch.float32)
+            for k in range(8):
+                readout = torch.round(ps[k] / lsb_t) * lsb_t
+                readouts[k, b0:b0 + GROUP, t] = readout
+                met = ((planes >> k) & 1).bool()[None, :]
+                s = torch.where(met, s + (2.0 ** k) * readout, s)
+            sums[b0:b0 + GROUP, t] = s
+    return readouts, sums, pairs
+
+
+def launch_split(b, r, c, array_size, n_sm=H100_SMS):
+    """The launcher's split of the arrays: (parts, arrays per part), at
+    about BLOCKS_PER_SM blocks per SM."""
+    blocks = -(-b // GROUP) * -(-c // (32 * COL_WARPS))
+    n_arrays = -(-r // array_size)
+    parts = max(1, min(n_arrays, -(-BLOCKS_PER_SM * n_sm // blocks)))
+    per = -(-n_arrays // parts)
+    return (-(-n_arrays // per) if n_arrays else 1), per
+
+
+def sum_over_arrays(sums, parts):
+    """``cim_mac``'s output from each array's sum [B, T, C]: the arrays of
+    each of ``parts`` parts added in order, then the parts in part order
+    (the launcher's second kernel), or the one part's sum as it is."""
+    n_arrays = sums.shape[1]
+    per = -(-n_arrays // parts)
+    part_sums = []
+    for p in range(-(-n_arrays // per)):
+        acc = torch.zeros_like(sums[:, 0])
+        for t in range(p * per, min(n_arrays, (p + 1) * per)):
+            acc = acc + sums[:, t]
+        part_sums.append(acc)
+    if len(part_sums) == 1:
+        return part_sums[0]
+    out = torch.zeros_like(sums[:, 0])
+    for acc in part_sums:                                     # (d)
+        out = out + acc
+    return out
 
 
 def _tile(array_size, tile_cols=16, gamma0=0.15):
@@ -353,6 +448,197 @@ def test_iterated_share_counts_groups_chunks_and_padding():
     assert kernel_order(v2, w, None, att, 256, 0.01, 2)[1] == 4
 
 
+# --- cim_mac: f32 readouts, a ragged last array ------------------------------
+
+DEC_ROWS = 1080           # CF-KAN-1's decoder: 108 inputs x 10 basis slots
+CIM_GAMMA0 = 0.08         # chip_smoke.py's crossbar IR drop
+
+
+@pytest.fixture(scope="module")
+def jops():
+    """The JAX package's kernel wrappers, imported only here."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops
+    return lambda v, w, att, array_size: torch.from_numpy(np.array(
+        ops.cim_mac(jnp.asarray(v.numpy()), jnp.asarray(w.numpy()),
+                    jnp.asarray(att.numpy()), array_size=array_size,
+                    adc_bits=8, in_scale=IN_SCALE)))
+
+
+def _cim_lsb(array_size, in_scale=IN_SCALE):
+    """The ADC step as ``ops.cim_mac`` computes it (the kernel and the
+    plain version round it to f32)."""
+    return array_size * in_scale / 255.0
+
+
+def plain_readouts(v, w, atten, array_size, in_scale=IN_SCALE):
+    """``ref.cim_mac_ref``'s readouts [8, B, T, C]. Run on one array's rows
+    with the codes cut to bit plane k, it returns 2^k * readout_k exactly:
+    the psum of plane k is the full codes', every other plane reads 0."""
+    b, r = v.shape
+    n_arrays = -(-r // array_size)
+    code = w.to(torch.int32)
+    out = torch.empty((8, b, n_arrays, w.shape[1]), dtype=torch.float32)
+    for k in range(8):
+        plane = (torch.sign(code) * (code.abs() & (1 << k))).to(torch.int8)
+        for t in range(n_arrays):
+            rows = slice(t * array_size, min(r, (t + 1) * array_size))
+            out[k, :, t] = tref.cim_mac_ref(
+                v[:, rows], plane[rows].contiguous(), atten[rows],
+                array_size, 8, in_scale) / 2.0 ** k
+    return out
+
+
+def _cim_tie_inputs(array_size):
+    """R = 1080 at atten 1 (gamma0 0). Each batch row has three live rows
+    whose values read another plane-0 readout if summed in another order:
+    in the ragged last array for the first half of the batch, in array 0
+    (across its 256-row lists at As 1024) for the second; the arrays
+    without ties hold sparse random values. Returns v, w, atten and the
+    two halves' (first, last) rows."""
+    rng = np.random.default_rng(15 + array_size)
+    b, r, c = 20, DEC_ROWS, 40
+    lsb = np.float32(_cim_lsb(array_size))
+    v = _sparse(rng, b, r, 0.3)
+    ragged = r - r % array_size
+    v[:, ragged:] = 0.0
+    v[:, :array_size] = 0.0
+    first = [ragged + 6, ragged + 26, r - 5]
+    second = [100, 300, 700] if array_size > 512 else [10, 100, 200]
+    ties = _order_ties(b, lsb, rng)
+    half = b // 2
+    v[:half, first] = ties[:half]
+    v[half:, second] = ties[half:]
+    w = rng.integers(-128, 128, (r, c)).astype(np.int8)
+    w[first + second] = 1
+    att = tcim.row_attenuation(
+        r, tcim.CIMConfig(array_size=array_size, gamma0=0.0), "cpu")
+    halves = ((first[0], first[-1], slice(0, half)),
+              (second[0], second[-1], slice(half, b)))
+    return torch.from_numpy(v), torch.from_numpy(w), att, halves
+
+
+def _cim_inputs(kind, b, r, c, array_size, seed):
+    """v [B, R], w [R, C] and the main path's attenuation. ``basis``: the
+    quantised basis of CF-KAN-1's decoder ASP on inputs that batch rows
+    mostly share (4 of each input's 10 slots live per batch row, fewer for
+    a group); ``dense``: 8-bit WL values with no zero; ``ties``:
+    ``_cim_tie_inputs`` (b, r, c fixed there). Codes in [-128, 127], with
+    -128 and 127 common."""
+    if kind == "ties":
+        return _cim_tie_inputs(array_size)[:3]
+    rng = np.random.default_rng(seed)
+    if kind == "basis":
+        asp = tc1.MODEL.asp_dec
+        n_in = r // asp.n_basis
+        x = (rng.uniform(-1.0, 1.0, n_in)
+             + 0.05 * rng.normal(size=(b, n_in))).astype(np.float32)
+        x = tk.bound_input(torch.from_numpy(x), asp)
+        v = tcim.quantize_wl(tq.quantized_basis(
+            x, tq.hemi_for(asp, "cpu"), asp).reshape(b, -1), 8)
+    else:
+        v = torch.from_numpy(
+            (rng.integers(1, 256, (b, r)) / 255.0).astype(np.float32))
+    w = rng.integers(-128, 128, (r, c)).astype(np.int8)
+    w[rng.random((r, c)) < 0.05] = -128
+    w[rng.random((r, c)) < 0.05] = 127
+    att = tcim.row_attenuation(
+        r, tcim.CIMConfig(array_size=array_size, gamma0=CIM_GAMMA0), "cpu")
+    return v.contiguous(), torch.from_numpy(w), att
+
+
+def _assert_cim_bar(got, want, v, w, atten, array_size, steps_ok):
+    """got within chip_smoke.py's bar of want: atol 2e-3, rtol 1e-4 plus
+    1e-6 * sum|2^k * readout| (bounded from above). With ``steps_ok`` a
+    larger difference may be a whole number of ADC steps, in under 0.1% of
+    the outputs (the JAX package sums its psums in its own order)."""
+    lsb = _cim_lsb(array_size)
+    n_arrays = -(-v.shape[1] // array_size)
+    mass = ((v * atten).abs() @ w.to(torch.float32).abs()
+            + n_arrays * 255 * lsb / 2)
+    err = (got - want).abs()
+    tol = 2e-3 + 1e-4 * want.abs() + 1e-6 * mass
+    off = err > tol
+    if not steps_ok:
+        assert not bool(off.any()), float((err - tol).max())
+        return
+    steps = torch.round(err / lsb)
+    assert not bool((off & ((steps < 1)
+                            | ((err - steps * lsb).abs() > tol))).any())
+    assert float(off.float().mean()) < 1e-3
+
+
+CIM_ORDER_CASES = [(40, DEC_ROWS, 48, 256), (40, DEC_ROWS, 48, 1024),
+                   (9, 100, 17, 64)]
+
+
+@pytest.mark.parametrize("kind", ["basis", "dense"])
+@pytest.mark.parametrize("b,r,c,array_size", CIM_ORDER_CASES)
+def test_cim_order_against_plain_and_jax(jops, kind, b, r, c, array_size):
+    """``readout_order``'s readouts are the plain version's bit for bit, at
+    the decoder's 1080 rows (a ragged last array at As 256 and 1024) and at
+    a narrow shape; its output at every split is within the bar of the
+    plain version and of JAX's ``ops.cim_mac`` (interpret mode)."""
+    v, w, att = _cim_inputs(kind, b, r, c, array_size, seed=r + array_size)
+    assert bool((w == -128).any()) and r % array_size
+    readouts, sums, pairs = readout_order(v, w, att, array_size,
+                                          _cim_lsb(array_size))
+    np.testing.assert_array_equal(
+        readouts.numpy(), plain_readouts(v, w, att, array_size).numpy())
+    assert bool(readouts[7].any())              # plane 7, from -128
+    want = tref.cim_mac_ref(v, w, att, array_size, 8, IN_SCALE)
+    oracle = jops(v, w, att, array_size)
+    n_arrays = sums.shape[1]
+    for parts in sorted({1, 2, launch_split(b, r, c, array_size)[0],
+                         n_arrays}):
+        got = sum_over_arrays(sums, min(parts, n_arrays))
+        _assert_cim_bar(got, want, v, w, att, array_size, steps_ok=False)
+        _assert_cim_bar(got, oracle, v, w, att, array_size, steps_ok=True)
+    if kind == "dense":
+        assert pairs == v.numel()               # every row, no padding
+    else:
+        assert pairs < 0.75 * v.numel()
+
+
+@pytest.mark.parametrize("array_size", [256, 1024])
+def test_cim_order_where_order_matters(array_size):
+    """Only the row order gives the plain version's readouts on
+    ``_cim_tie_inputs``: in the ragged last array, and across the lists of
+    an array at As 1024."""
+    v, w, att, halves = _cim_tie_inputs(array_size)
+    want = tref.cim_mac_ref(v, w, att, array_size, 8, IN_SCALE)
+    for first, last, rows in halves:
+        swap = torch.arange(v.shape[1])
+        swap[[first, last]] = swap[[last, first]]
+        reordered = tref.cim_mac_ref(v[:, swap], w[swap], att, array_size, 8,
+                                     IN_SCALE)
+        assert bool((reordered != want)[rows].all())
+    readouts, sums, _ = readout_order(v, w, att, array_size,
+                                      _cim_lsb(array_size))
+    np.testing.assert_array_equal(
+        readouts.numpy(), plain_readouts(v, w, att, array_size).numpy())
+    _assert_cim_bar(sum_over_arrays(sums, 2), want, v, w, att, array_size,
+                    steps_ok=False)
+
+
+def test_cim_iterated_pairs_in_a_ragged_array():
+    """readout_order's count on a hand-counted case: R = 300 at As 256 (a
+    ragged array of 44 rows), one group of three batch rows, rows 0 and 1
+    live in array 0 and row 299 in the ragged one (each list padded to 4
+    rows); the launcher's split at CF-KAN-1's shapes."""
+    w = torch.ones((300, 3), dtype=torch.int8)
+    v = torch.zeros((3, 300))
+    v[0, 0] = v[2, 1] = v[1, 299] = 1.0
+    readouts, sums, pairs = readout_order(v, w, torch.ones(300), 256, 0.01)
+    assert pairs == (4 + 4) * 3
+    assert torch.equal(sum_over_arrays(sums, 2), torch.ones((3, 3)))
+    # encoder: 16 blocks over 640 arrays; decoder: 16 x 128 over 5 and 2
+    assert launch_split(256, 163840, 108, 256) == (214, 3)
+    assert launch_split(256, DEC_ROWS, 16384, 256) == (3, 2)
+    assert launch_split(256, DEC_ROWS, 16384, 1024) == (2, 1)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -497,5 +783,77 @@ def test_kernel_adc_at_half_steps(cuda, array_size):
         want = tref.cim_mac_tiled_ref(v_c, w_c, None, att, array_size, 8,
                                       in_scale)
         large.append(bool((want[:, 0] >= 2 ** 22).any()))
+        assert torch.equal(got, want), f"in_scale={in_scale}"
+    assert any(large)
+
+
+# (inputs, B, R, C, As): the decoder's rows (ragged last array) at its
+# batch, at B = 1, with B and C ragged (37, 108 and 1); order ties; As 128
+# over 13 arrays with a ragged B; the JAX suite's narrow shape
+CIM_KERNEL_CASES = [("basis", 256, DEC_ROWS, 108, 256),
+                    ("basis", 1, DEC_ROWS, 108, 256),
+                    ("dense", 37, DEC_ROWS, 108, 1024),
+                    ("dense", 20, DEC_ROWS, 1, 256),
+                    ("ties", 20, DEC_ROWS, 40, 256),
+                    ("ties", 20, DEC_ROWS, 40, 1024),
+                    ("basis", 70, 1600, 200, 128),
+                    ("dense", 9, 100, 17, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,r,c,array_size", CIM_KERNEL_CASES)
+def test_cim_mac_kernel_matches_its_order(cuda, kind, b, r, c, array_size):
+    """The ``cim_mac`` kernel gives ``readout_order``'s output bit for bit,
+    split as the launcher splits it; a second launch the same; its
+    ``rows_iterated`` the copy's count; and the plain version's output
+    within the bar, with no ADC step apart."""
+    v, w, att = _cim_inputs(kind, b, r, c, array_size, seed=b + r + c)
+    lsb = _cim_lsb(array_size)
+    _, sums, pairs = readout_order(v, w, att, array_size, lsb)
+    n_scratch = tbuild.load().cim_mac_scratch(b, r, c, array_size)
+    parts = n_scratch // (b * c) or 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert parts == launch_split(b, r, c, array_size, sms)[0]
+    v_c, w_c, att_c = v.to(cuda), w.to(cuda), att.to(cuda)
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = tcm.cim_mac(v_c, w_c, att_c, array_size=array_size, lsb=lsb,
+                      rows_iterated=counter)
+    again = tops.cim_mac(v_c, w_c, att_c, array_size=array_size, adc_bits=8,
+                         in_scale=IN_SCALE)
+    want = tref.cim_mac_ref(v_c, w_c, att_c, array_size, 8, IN_SCALE)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sum_over_arrays(sums, parts))
+    assert torch.equal(again, got)
+    assert int(counter) == pairs
+    _assert_cim_bar(got.cpu(), want.cpu(), v, w, att, array_size,
+                    steps_ok=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("array_size", [64, 256, 1024])
+def test_cim_mac_kernel_adc_at_half_steps(cuda, array_size):
+    """``cim_mac``'s ADC alone: one live row per output in 2.5 arrays,
+    atten 1 and codes of 1, -1 and -128, so each output is one readout
+    times 1, 1 or 128; values one ulp around .5 LSB steps, readouts of
+    2^31 LSB and more (the kernel converts none to an integer), LSBs inside
+    and outside [2^-120, 2^120]. Bitwise the plain version on the card."""
+    rng = np.random.default_rng(array_size)
+    r = 2 * array_size + array_size // 2
+    w = torch.tensor([[1, -1, -128]], dtype=torch.int8).repeat(r, 1)
+    att = torch.ones(r, device=cuda)
+    large = []
+    for in_scale in (1.2e-37, 1e-6, 0.2, 1.0, 7.3, 1e7, 2e37):
+        lsb = np.float32(array_size * in_scale / 255.0)
+        big = [m * float(lsb) for m in (2.0 ** 31, 3 * 2.0 ** 33, 2.0 ** 40)]
+        vals = np.concatenate([_half_step_values(lsb, rng), np.array(
+            [x for x in big if 0 < x < 3e38], dtype=np.float32)])
+        v = np.zeros((len(vals), r), dtype=np.float32)
+        rows = np.arange(len(vals))
+        v[rows, (rows * 37) % r] = vals        # one row, in any array
+        v_c, w_c = torch.from_numpy(v).to(cuda), w.to(cuda)
+        got = tops.cim_mac(v_c, w_c, att, array_size=array_size, adc_bits=8,
+                           in_scale=in_scale)
+        want = tref.cim_mac_ref(v_c, w_c, att, array_size, 8, in_scale)
+        large.append(bool((want[:, 0] / float(lsb) >= 2 ** 31).any()))
         assert torch.equal(got, want), f"in_scale={in_scale}"
     assert any(large)

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither ``jax`` nor
 ``repro``, and its entry points run on the card unless told otherwise."""
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -85,6 +86,19 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     out = decode.generate(lm_params, lm, torch.zeros((1, 4), dtype=torch.long),
                           n_new=2)
     assert out.shape == (1, 2) and out.device.type == "cpu"
+
+
+def test_library_name_follows_the_headers(monkeypatch, tmp_path):
+    """An edited header (``csrc/*.cuh``, which the sources include) names
+    another library, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.library_path()
+    header = csrc / "cim_mac_common.cuh"
+    assert '#include "cim_mac_common.cuh"' in (csrc / "cim_mac.cu").read_text()
+    header.write_text(header.read_text() + "\n")
+    assert build.library_path() != before
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
