@@ -1,6 +1,6 @@
-"""Serve CF-KAN-1 and mamba2-1.3b at full width on one CUDA card through
-the port's hand-written kernels, and hold every kernel against its plain
-version.
+"""Serve CF-KAN-1 and mamba2-1.3b and train CF-KAN-1 at full width on one
+CUDA card through the port's hand-written kernels, and hold every kernel
+against its plain version.
 
     python3 chip_smoke.py
 
@@ -101,6 +101,33 @@ Phases (any failed check raises, and the script exits non-zero):
    two checks, to the reach of bf16 rounding on these weights and tokens:
    the largest distance between the bf16 and the f32 forward.
 
+9. Training at full width: CF-KAN-1 with ``backend="fused"`` from
+   ``init(seed=0)``, the users of phase 4 split 819 / 205 into training and
+   validation. (a) The autograd Function ``ops.kan_spline_fused`` per layer
+   on the first training batch of 64 (the decoder's input the encoder's QAT
+   output), dy seeded: its forward within ``kan_fused``'s
+   ``1e-6 * sum|terms|`` of ``ref.kan_spline_ref``; d/dcoeffs within
+   ``atol 1e-5 + rtol 1e-5 + 1e-6 * sum|terms|`` (the JAX suite's gradient
+   bar, plus the summation-order part) of the quantised-basis product in
+   float64; the decoder's d/dx within the same bar of the float path's
+   derivative in float64 (the encoder's input is data and gets none); each
+   row prints its largest err/tolerance. ``kan_fused`` at batch 64 (its
+   split path) is held as in phase 3. (b) ``train_cf_kan.train``: 100 SGD
+   steps of batch 64 at the JAX example's lr 2e-2 on the QAT loss, twice,
+   launch counts zeroed before each run and read after: ``kan_fused``
+   exactly twice a step, no crossbar kernel; every loss finite, the first
+   within 5% of ``n_observed * ln(n_items)`` (near-uniform logits at init).
+   The first run ends each step in a synchronize and gives the median host
+   time per step; the second is the loop as users run it, with one
+   synchronize after the last step, and gives its window over the steps.
+   (c) On the trained weights, launch-counted: float (``ref``) and
+   ASP-8-bit (QAT) Recall@20 and NDCG@20 of the validation users; the Fig. 18 protocol over every user
+   through ``cim`` (gamma0 0.08, As 128..1024, uniform and KAN-SAM), whose
+   uniform error must grow with As and KAN-SAM be below it at As 1024; the
+   Fig. 19 cost of CF-KAN-1. (d) Over 5 more steps (profiler): the device's
+   busy time per step, its idle share of (b)'s window and median per step,
+   ``kan_fused``'s part, and the ops whose kernels took the most.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -119,8 +146,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
-from repro_torch.core import kan, kan_sam, quant  # noqa: E402
+from repro_torch.core import kan, kan_sam, quant, splines  # noqa: E402
 from repro_torch.data import cf_synth, lm_synth  # noqa: E402
+from repro_torch.examples import train_cf_kan  # noqa: E402
 from repro_torch.hw import chip, cim, tiles, variation  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import cim_mac as cim_kernels  # noqa: E402
@@ -167,6 +195,13 @@ F32_PATH_BAR = 1e-3
 FIG18_GAMMA0, FIG18_SEEDS = 0.2, (0, 1, 2)
 FIG18_JAX = {128: (0.1330, 0.0759), 256: (0.2382, 0.1144),
              512: (0.4176, 0.1950), 1024: (0.6455, 0.2993)}
+# phase 9: QAT training of CF-KAN-1 at full width with the JAX example's lr
+# and batch (``train_cf_kan.BATCH``); 100 steps are 8 passes over the 819
+# training users and 4 batches of a ninth
+TRAIN_STEPS, TRAIN_LR = 100, 2e-2
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-5   # the JAX suite's gradient bar
+TRAIN_LOSS_REL = 0.05     # first loss against n_observed * ln(n_items)
+PROFILE_STEPS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -843,6 +878,273 @@ def lm_main_path(params, cfg, prompt):
     return metrics, launches_gen, launches_fwd
 
 
+# --- phase 9: training at full width -----------------------------------------
+
+def over_tol(got, want, mass):
+    """Largest |got - want| over the gradient bar ``GRAD_ATOL + GRAD_RTOL *
+    |want| + ORDER_REL * mass`` (want in float64)."""
+    tol = GRAD_ATOL + GRAD_RTOL * want.abs() + ORDER_REL * mass
+    return float(((got.double() - want).abs() / tol).max())
+
+
+def grad_check(params, cfg, x):
+    """The autograd Function ``ops.kan_spline_fused`` per layer of CF-KAN-1
+    on one batch of training users (the decoder's input is the encoder's
+    QAT output), with dy drawn from a seeded generator: the forward against
+    ``ref.kan_spline_ref`` at ``kan_fused``'s bar, d/dcoeffs against the
+    quantised-basis product in float64 and the decoder's d/dx against the
+    float path's derivative in float64, each at the gradient bar."""
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    enc_spec = dataclasses.replace(cfg.kan_spec, dims=cfg.kan_spec.dims[:2],
+                                   asp=(cfg.asp_enc,), layer_names=())
+    with torch.no_grad():
+        h = kan.train_apply(params["enc"], x, enc_spec, qat=True)
+    rows = []
+    for label, xb, coeffs, asp in (
+            ("enc", kan.bound_input(x, cfg.asp_enc), params["enc"]["coeffs"],
+             cfg.asp_enc),
+            ("dec", kan.bound_input(h, cfg.asp_dec), params["dec"]["coeffs"],
+             cfg.asp_dec)):
+        xg = xb.clone().requires_grad_(label == "dec")
+        cg = coeffs.clone().requires_grad_()
+        y = ops.kan_spline_fused(xg, cg, asp)
+        dy = torch.randn(y.shape, generator=gen, device=dev)
+        y.backward(dy)
+        codes, scale = quant.quantize_coeffs(coeffs, asp, axis=(0, 1))
+        scale = scale.reshape(-1)
+        want = ref.kan_spline_ref(xb, codes, scale, asp)
+        e = quant.quantized_basis(xb, quant.hemi_for(asp, dev), asp
+                                  ).reshape(xb.shape[0], -1)
+        mass = (e.abs() @ codes.to(torch.float32).reshape(e.shape[1], -1)
+                .abs()) * scale.abs()
+        err = (y.detach() - want).abs()
+        row = dict(layer=label, B=xb.shape[0],
+                   forward_max_abs_err=float(err.max()),
+                   forward_err_over_tol=float((err / (ORDER_REL * mass)
+                                               .clamp_min(1e-30)).max()))
+        e64 = e.double()
+        row["dcoeffs_err_over_tol"] = over_tol(
+            cg.grad, (e64.T @ dy.double()).reshape(coeffs.shape),
+            (e64.abs().T @ dy.double().abs()).reshape(coeffs.shape))
+        row["dcoeffs_max_abs"] = float(cg.grad.abs().max())
+        if label == "dec":
+            want_dx, mass_dx = ref.kan_spline_dx_f64(xb, coeffs, asp, dy)
+            row["dx_err_over_tol"] = over_tol(xg.grad, want_dx, mass_dx)
+            row["dx_max_abs"] = float(xg.grad.abs().max())
+        else:
+            check(xg.grad is None, "grad check: the encoder's data got a "
+                  "gradient")
+        del e, e64, mass
+        for k, v in row.items():
+            if k.endswith("_err_over_tol"):
+                check(v <= 1.0, f"grad check {label}: {k} {v:.3g} > 1")
+        rows.append(row)
+    return rows
+
+
+def step_profile(params, cfg, train_ds, window_ms, median_ms,
+                 steps=PROFILE_STEPS):
+    """Device time per training step from a ``torch.profiler`` trace of
+    ``steps`` steps after two warm ones: the device's busy time (the sum
+    over CUDA kernels and copies), ``kan_fused``'s part of it, and the ops
+    whose kernels took the most (an op's self device time is that of the
+    kernels it launched) and the ops that took the most host time (self
+    CPU time, which the profiler inflates). The idle shares divide the busy
+    time by this run's unprofiled times per step: the window's (the loop as
+    users run it) and the median of the synchronized steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    train_cf_kan.train(params, cfg, train_ds, steps=2, lr=TRAIN_LR)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_cf_kan.train(params, cfg, train_ds, steps=steps, lr=TRAIN_LR)
+        torch.cuda.synchronize()
+    kernels, ops_ms, host_ms = {}, {}, {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", 0.0)
+              or getattr(ev, "self_cuda_time_total", 0.0))
+        if us:
+            side = kernels if ev.device_type == DeviceType.CUDA else ops_ms
+            side[ev.key[:90]] = us / 1e3 / steps
+        if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total:
+            host_ms[ev.key[:90]] = ev.self_cpu_time_total / 1e3 / steps
+    busy = sum(kernels.values())
+    check(busy > 0, "step profile: the trace holds no device time")
+    return dict(device_ms_per_step=busy,
+                idle_share_window=1 - busy / window_ms,
+                idle_share_synchronized=1 - busy / median_ms,
+                kan_fused_ms_per_step=sum(v for k, v in kernels.items()
+                                          if "kan_fused" in k),
+                top_ops_ms=dict(sorted(ops_ms.items(),
+                                       key=lambda kv: -kv[1])[:12]),
+                host_ms_per_step_profiled=sum(host_ms.values()),
+                top_host_ops_ms=dict(sorted(host_ms.items(),
+                                            key=lambda kv: -kv[1])[:12]))
+
+
+def counted_training(params, cfg, train_ds, on_step=None):
+    """One launch-counted run of ``train_cf_kan.train`` over TRAIN_STEPS:
+    ``kan_fused`` exactly twice a step, no crossbar kernel. Returns the
+    result, the seconds from the call to a synchronize after it, and the
+    launches."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_cf_kan.train(params, cfg, train_ds, steps=TRAIN_STEPS,
+                             lr=TRAIN_LR, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches["kan_fused"] == 2 * TRAIN_STEPS,
+          f"kan_fused launched {launches['kan_fused']} times in "
+          f"{TRAIN_STEPS} training steps, not {2 * TRAIN_STEPS}")
+    check(launches["cim_mac"] == launches["cim_mac_tiled"] == 0,
+          f"training launched crossbar kernels: {launches}")
+    return res, seconds, launches
+
+
+def train_phase(timer, params, cfg, ds, art):
+    """Phase 9. Returns the metrics, the extra ``kan_fused`` rows (batch 64)
+    and the launches of the training run and of the evaluation."""
+    dev = art.layers[0].codes.device
+    train_ds, val_ds = cf_synth.split(ds)
+    x = torch.from_numpy(next(cf_synth.batches(train_ds, train_cf_kan.BATCH,
+                                               seed=0))).to(dev)
+    out = {"grad_check": grad_check(params, cfg, x)}
+    for r in out["grad_check"]:
+        print(f"phase 9 grad check {r['layer']} (B={r['B']}): forward "
+              f"max|err| {r['forward_max_abs_err']:.3g}, err/tol forward "
+              f"{r['forward_err_over_tol']:.3g}, dcoeffs "
+              f"{r['dcoeffs_err_over_tol']:.3g}"
+              + (f", dx {r['dx_err_over_tol']:.3g}" if "dx_err_over_tol" in r
+                 else ", no dx (data)"))
+    # kan_fused at the training batch (its split path), as phase 3 holds it
+    enc, dec = art.layers
+    xe = kan.bound_input(x, cfg.asp_enc)
+    h = (ref.kan_spline_ref(xe, enc.codes, enc.scale.reshape(-1),
+                            cfg.asp_enc, enc.hemi)
+         + kan.base_branch(xe, enc.w_base, "relu"))
+    krows = [check_kan_fused(timer, f"enc B={train_cf_kan.BATCH}", xe, enc,
+                             cfg.asp_enc),
+             check_kan_fused(timer, f"dec B={train_cf_kan.BATCH}",
+                             kan.bound_input(h, cfg.asp_dec), dec,
+                             cfg.asp_dec)]
+    for r in krows:
+        r["on_path"] = False    # the kernel line's ms stays per serving apply
+        print(f"kernel kan_fused {r['shape']}: max|err| {r['max_abs_err']:.3g}"
+              f", err/sum|terms| {r['max_err_over_sum_abs_terms']:.3g}, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+
+    # training, launch-counted: first each step ending in a synchronize
+    # (its median), then the loop as users run it, one synchronize at the
+    # end (its window over the steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ends = []
+
+    def synchronized(step, loss):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    res, train_s, launches_sync = counted_training(params, cfg, train_ds,
+                                                   synchronized)
+    step_ms = np.diff([t0] + ends) * 1e3
+    res_w, window_s, launches_window = counted_training(params, cfg,
+                                                        train_ds)
+    launches_train = {k: launches_sync[k] + launches_window[k]
+                      for k in launches_sync}
+    losses = res.losses
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          "training: a loss is not finite")
+    n_obs = float(x.sum(-1).mean())
+    init_loss = n_obs * np.log(cfg.n_items)
+    check(abs(losses[0] / init_loss - 1) <= TRAIN_LOSS_REL,
+          f"training: first loss {losses[0]:.2f}, not within "
+          f"{TRAIN_LOSS_REL:.0%} of {n_obs:.0f} * ln {cfg.n_items} = "
+          f"{init_loss:.2f}")
+    for layer in res.params.values():
+        for p in layer.values():
+            check(bool(torch.isfinite(p).all()), "training: weights not "
+                  "finite")
+    out.update(train_s=train_s, window_s=window_s, steps=TRAIN_STEPS,
+               lr=TRAIN_LR, batch=train_cf_kan.BATCH, loss_first=losses[0],
+               loss_last=losses[-1], loss_at_init_uniform=init_loss,
+               loss_every_10=[round(v, 4) for v in losses[::10]],
+               losses_equal_across_runs=res_w.losses == losses,
+               step_ms_median=float(np.median(step_ms)),
+               step_ms_first=float(step_ms[0]),
+               step_ms_all=[round(float(t), 3) for t in step_ms],
+               window_ms_per_step=1e3 * window_s / TRAIN_STEPS,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"phase 9 training: {TRAIN_STEPS} steps of {train_cf_kan.BATCH} "
+          f"users, lr {TRAIN_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(uniform logits: {init_loss:.2f}); each step synchronized: "
+          f"median {out['step_ms_median']:.3f} ms (first {step_ms[0]:.1f}), "
+          f"{train_s:.2f} s in all; the loop unsynchronized: "
+          f"{out['window_ms_per_step']:.3f} ms per step over the window, "
+          f"losses the same as the first run's: "
+          f"{out['losses_equal_across_runs']}; peak {out['peak_gb']:.2f} GB; "
+          f"launches {launches_sync} per run")
+
+    # evaluation on the trained weights, launch-counted
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["metrics"] = train_cf_kan.evaluate(res.params, cfg, val_ds)
+    out["fig18"], cost = train_cf_kan.fig18(res.params, cfg, ds, train_ds)
+    out["eval_s"] = time.perf_counter() - t0
+    launches_eval = ops.launch_counts()
+    n_cim = 2 * 2 * len(train_cf_kan.ARRAY_SIZES)  # 2 mappings x 2 layers
+    check(launches_eval["cim_mac"] == n_cim,
+          f"fig18 launched cim_mac {launches_eval['cim_mac']} times, not "
+          f"{n_cim}")
+    m = out["metrics"]
+    check(all(0.0 <= v <= 1.0 for v in m.values()),
+          f"evaluation: metrics out of [0, 1]: {m}")
+    print(f"phase 9 evaluation ({len(val_ds.observed)} validation users): "
+          f"float Recall@20 {m['recall_float']:.6f} NDCG@20 "
+          f"{m['ndcg_float']:.6f}; ASP-8bit Recall@20 {m['recall_asp']:.6f} "
+          f"NDCG@20 {m['ndcg_asp']:.6f}")
+    for r in out["fig18"]:
+        print(f"phase 9 Fig. 18 As={r['As']}: score-err uniform "
+              f"{r['err_uniform']:.4f} KAN-SAM {r['err_sam']:.4f}; recall-deg"
+              f" uniform {r['recall_deg_uniform']:.4f} KAN-SAM "
+              f"{r['recall_deg_sam']:.4f}")
+    uni = [r["err_uniform"] for r in out["fig18"]]
+    check(all(np.isfinite(uni)) and all(lo < hi for lo, hi in
+                                        zip(uni, uni[1:])),
+          f"phase 9 Fig. 18: uniform error does not grow with As: {uni}")
+    check(out["fig18"][-1]["err_sam"] < uni[-1],
+          "phase 9 Fig. 18: KAN-SAM does not recover at the largest As")
+    out["cost"] = dataclasses.asdict(cost)
+    print(f"phase 9 Fig. 19 cost model @22nm ({cfg.n_params:,} params): "
+          f"{cost.area_mm2:.2f} mm^2, {cost.power_w * 1e3:.1f} mW, "
+          f"{cost.latency_ns:.0f} ns, {cost.energy_nj:.1f} nJ; evaluation "
+          f"{out['eval_s']:.2f} s; launches {launches_eval}")
+
+    # where a step's time goes (after the counted runs)
+    out["profile"] = step_profile(params, cfg, train_ds,
+                                  out["window_ms_per_step"],
+                                  out["step_ms_median"])
+    pr = out["profile"]
+    print(f"phase 9 step profile ({PROFILE_STEPS} steps, profiler): device "
+          f"{pr['device_ms_per_step']:.3f} ms per step, idle "
+          f"{pr['idle_share_window']:.3f} of the unsynchronized window's "
+          f"{out['window_ms_per_step']:.3f} ms and "
+          f"{pr['idle_share_synchronized']:.3f} of the synchronized median "
+          f"{out['step_ms_median']:.3f} ms; kan_fused "
+          f"{pr['kan_fused_ms_per_step']:.3f} ms; device ms per step by op "
+          + json.dumps({k: round(v, 4) for k, v in
+                        pr["top_ops_ms"].items()}))
+    print(f"phase 9 step profile: host (self CPU time, profiled) "
+          f"{pr['host_ms_per_step_profiled']:.3f} ms per step; by op "
+          + json.dumps({k: round(v, 4) for k, v in
+                        pr["top_host_ops_ms"].items()}))
+    return out, krows, launches_train, launches_eval
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1081,6 +1383,20 @@ def main() -> int:
           "call, profiler): " + (json.dumps(stage) if stage else
                                  "not measured (no device times in the "
                                  "trace)"))
+
+    # 9. training at full width, then evaluation on the trained weights
+    del lparams, prompt, scan_in
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train9, krows9, launches_train, launches_eval = train_phase(
+        timer, params, cfg_fused, ds, art)
+    rows["kan_fused"].extend(krows9)
+    launches["kan_fused"] += (launches_train["kan_fused"]
+                              + launches_eval["kan_fused"])
+    launches["cim_mac"] += launches_eval["cim_mac"]
+    print("phase 9: " + json.dumps({k: v for k, v in train9.items()
+                                    if k != "step_ms_all"}))
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
     # result lines
     kernels = []

@@ -21,8 +21,12 @@
   image and the KAN-SAM row order/attenuation, or the chip placement.
 * **apply(deployed, x) → y** — run-time evaluation against the frozen
   artifact; it never requantises.
-* **train_apply(params, x, spec)** — the training path's forward over float
-  master weights (QAT waits for the training slice).
+* **train_apply(params, x, spec, qat=...)** — the training twin: the same
+  backend dispatch over float master weights, fake-quant/STE when
+  ``qat=True``, whose forward equals the deployed integer forward. ``fused``
+  trains through ``kernels.ops.kan_spline_fused``, an autograd Function
+  whose forward launches the fused kernel; the integer backends train on
+  the LUT path with a straight-through backward.
 
 Parameters are plain dicts of tensors: a single unnamed layer owns
 ``{"coeffs", "w_base"}``; a multi-layer spec nests one such dict per layer
@@ -182,6 +186,14 @@ def spline_lut(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig,
     return basis.reshape(lead + (ik,)) @ coeffs.reshape(ik, coeffs.shape[-1])
 
 
+def spline_lut_qat(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig,
+                   hemi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantised forward with the float path's straight-through backward."""
+    yq = spline_lut(x, coeffs, asp, hemi)
+    yf = spline_ref(x, coeffs, asp)
+    return yf + (yq - yf).detach()
+
+
 # ---------------------------------------------------------------------------
 # Deployed artifact
 # ---------------------------------------------------------------------------
@@ -234,9 +246,12 @@ class KANBackend:
         raise NotImplementedError
 
     def train_run(self, coeffs: torch.Tensor, lspec: KANLayerShape,
-                  spec: KANSpec, x: torch.Tensor) -> torch.Tensor:
-        """Training-path spline forward over float master coefficients;
-        the default is the quantised LUT path."""
+                  spec: KANSpec, x: torch.Tensor, qat: bool) -> torch.Tensor:
+        """Training-path spline forward over float master coefficients.
+        The default is the quantised LUT path, with the straight-through
+        backward under QAT: what every integer backend trains against."""
+        if qat:
+            return spline_lut_qat(x, coeffs, lspec.asp)
         return spline_lut(x, coeffs, lspec.asp)
 
 
@@ -275,7 +290,8 @@ class RefBackend(KANBackend):
         coeffs = quant.dequantize_coeffs(layer.codes, layer.scale)
         return spline_ref(x, coeffs, lspec.asp)
 
-    def train_run(self, coeffs, lspec, spec, x):
+    def train_run(self, coeffs, lspec, spec, x, qat):
+        """Pure float forward (the oracle ignores ``qat``)."""
         return spline_ref(x, coeffs, lspec.asp)
 
 
@@ -304,10 +320,11 @@ class FusedBackend(KANBackend):
         return ops.kan_spline_fused_deployed(x, layer.codes, layer.scale,
                                              lspec.asp, hemi=layer.hemi)
 
-    def train_run(self, coeffs, lspec, spec, x):
+    def train_run(self, coeffs, lspec, spec, x, qat):
+        """The fused kernel inside its QAT autograd Function (forward
+        quantised, straight-through backward), whatever ``qat``."""
         from repro_torch.kernels import ops
-        codes, scale = quant.quantize_coeffs(coeffs, lspec.asp, axis=(0, 1))
-        return ops.kan_spline_fused_deployed(x, codes, scale, lspec.asp)
+        return ops.kan_spline_fused(x, coeffs, lspec.asp)
 
 
 @register_backend("cim")
@@ -485,18 +502,22 @@ def apply(deployed: DeployedKAN, x: torch.Tensor, *,
 def train_apply(params, x: torch.Tensor, spec: KANSpec, *, qat: bool = False
                 ) -> torch.Tensor:
     """Training twin of ``apply``: float master weights through the same
-    backend dispatch (forward only). The QAT path (fake-quantised
-    coefficients under a straight-through estimator, and the fused kernel's
-    autograd wrapper) belongs to the training slice and is not ported."""
-    if qat:
-        raise NotImplementedError(
-            "train_apply(qat=True) is not ported yet (training slice)")
+    backend dispatch. With ``qat=True`` the coefficients are fake-quantised
+    under a straight-through estimator, so the forward equals the deployed
+    integer forward."""
     backend = get_backend(spec.backend)
     for i in range(spec.n_layers):
         lp = _layer_params(params, spec, i)
         lspec = spec.layer(i)
         xb = bound_input(x, lspec.asp) if spec.bound_input else x
-        y = backend.train_run(lp["coeffs"], lspec, spec, xb)
+        coeffs = lp["coeffs"]
+        if qat:
+            with torch.no_grad():
+                codes, scale = quant.quantize_coeffs(coeffs, lspec.asp,
+                                                     axis=(0, 1))
+                cq = quant.dequantize_coeffs(codes, scale).to(coeffs.dtype)
+            coeffs = coeffs + (cq - coeffs).detach()
+        y = backend.train_run(coeffs, lspec, spec, xb, qat=qat)
         if spec.base_activation and "w_base" in lp:
             y = y + base_branch(xb, lp["w_base"], spec.base_activation)
         x = y

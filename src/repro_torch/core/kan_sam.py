@@ -14,11 +14,12 @@ bit-line clamp, where IR drop is smallest.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import quant
 from repro_torch.core.quant import ASPConfig
 from repro_torch.core.splines import true_div
@@ -64,6 +65,16 @@ def update_stats(stats: BasisStats, x: torch.Tensor, asp: ASPConfig,
                       s1=stats.s1 + basis.sum(dim=0),
                       s2=stats.s2 + (basis * basis).sum(dim=0),
                       n_samples=stats.n_samples + x.shape[0])
+
+
+def collect_stats(batches: Iterable[torch.Tensor], asp: ASPConfig,
+                  in_dim: int, device=None) -> BasisStats:
+    """Phase A over a stream of bounded batches [B, I] on ``device``
+    (``None``: the card)."""
+    stats = init_stats(in_dim, asp, resolve_device(device))
+    for x in batches:
+        stats = update_stats(stats, x, asp)
+    return stats
 
 
 def criticality(stats: BasisStats, coeff_codes: torch.Tensor, *,
@@ -114,3 +125,11 @@ def sam_row_map(c_w: torch.Tensor, atten_by_position: torch.Tensor
                                 device=c_w.device)
     phys_of_logical, _ = row_mapping(c_w, row_order=row_order)
     return phys_of_logical, atten_by_position[phys_of_logical.long()]
+
+
+def sam_attenuation(c_w: torch.Tensor, atten_by_position: torch.Tensor
+                    ) -> torch.Tensor:
+    """Effective per-logical-row attenuation under the KAN-SAM mapping,
+    shaped like ``c_w`` [I, S]."""
+    _, atten = sam_row_map(c_w, atten_by_position)
+    return atten.reshape(c_w.shape)

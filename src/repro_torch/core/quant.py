@@ -106,6 +106,29 @@ def _cardinal_taps_np(u: np.ndarray, order: int) -> np.ndarray:
     return np.stack(taps, axis=-1)
 
 
+def _full_lut_np(cfg: ASPConfig) -> np.ndarray:
+    """The full aligned table [2^LD, K+1] in float64: the taps at the
+    quantisation midpoints."""
+    L = cfg.levels_per_interval
+    u = (np.arange(L, dtype=np.float64) + 0.5) / L
+    return _cardinal_taps_np(u, cfg.order)
+
+
+def build_full_lut(cfg: ASPConfig, device, dtype=torch.float32
+                   ) -> torch.Tensor:
+    """Full aligned LUT [2^LD, K+1] on ``device``: by Alignment, this one
+    table serves every segment of every edge spline."""
+    return torch.tensor(_full_lut_np(cfg), dtype=dtype, device=device)
+
+
+def build_sh_lut(cfg: ASPConfig, device, dtype=torch.float32
+                 ) -> torch.Tensor:
+    """Sharable-Hemi LUT: the lower ceil(L/2) rows of the full table; the
+    upper half is ``full[L-1-loc, t] == hemi[loc, K-t]``."""
+    full = build_full_lut(cfg, device, dtype)
+    return full[:(cfg.levels_per_interval + 1) // 2]
+
+
 @functools.lru_cache(maxsize=64)
 def cached_hemi_np(grid_size: int, order: int, n_bits: int,
                    x_min: float, x_max: float,
@@ -114,18 +137,28 @@ def cached_hemi_np(grid_size: int, order: int, n_bits: int,
     midpoints in float64, cast to f32, lower half kept."""
     cfg = ASPConfig(grid_size=grid_size, order=order, n_bits=n_bits,
                     x_min=x_min, x_max=x_max, ld_cap=ld)
-    L = cfg.levels_per_interval
-    u = (np.arange(L, dtype=np.float64) + 0.5) / L
-    full = _cardinal_taps_np(u, cfg.order).astype(np.float32)
-    return full[:(L + 1) // 2]
+    full = _full_lut_np(cfg).astype(np.float32)
+    return full[:(cfg.levels_per_interval + 1) // 2]
 
 
 def hemi_for(cfg: ASPConfig, device) -> torch.Tensor:
-    """The SH-LUT of a config as an f32 tensor on ``device`` (a copy: the
-    cached array is shared by every caller)."""
-    return torch.tensor(
-        cached_hemi_np(cfg.grid_size, cfg.order, cfg.n_bits, cfg.x_min,
-                       cfg.x_max, cfg.ld), device=device)
+    """The SH-LUT of a config as an f32 tensor on ``device``, made once per
+    config and device and shared by every caller, which only reads it: a
+    fresh upload to the card at each call would wait for all the work
+    queued before it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _hemi_on(cfg.grid_size, cfg.order, cfg.n_bits, cfg.x_min,
+                    cfg.x_max, cfg.ld, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _hemi_on(grid_size: int, order: int, n_bits: int, x_min: float,
+             x_max: float, ld: Optional[int], device: torch.device
+             ) -> torch.Tensor:
+    return torch.tensor(cached_hemi_np(grid_size, order, n_bits, x_min,
+                                       x_max, ld), device=device)
 
 
 def sh_lut_lookup(hemi: torch.Tensor, local: torch.Tensor, cfg: ASPConfig
@@ -149,6 +182,18 @@ def quantize_input(x: torch.Tensor, cfg: ASPConfig) -> torch.Tensor:
     a true f32 divide, as the reference and the kernel compute it."""
     q = torch.floor(true_div(x - cfg.x_min, cfg.step))
     return torch.clamp(q, 0, cfg.n_levels - 1).to(torch.int32)
+
+
+def dequantize_input(q: torch.Tensor, cfg: ASPConfig) -> torch.Tensor:
+    """Integer code -> midpoint of its quantisation cell."""
+    return cfg.x_min + (q.to(torch.float32) + 0.5) * cfg.step
+
+
+def fake_quantize_input(x: torch.Tensor, cfg: ASPConfig) -> torch.Tensor:
+    """Straight-through fake quantisation of the input for QAT: the forward
+    is the cell midpoint, the gradient passes unchanged."""
+    q = dequantize_input(quantize_input(x, cfg), cfg)
+    return x + (q - x).detach()
 
 
 def powergap_decode(q: torch.Tensor, cfg: ASPConfig
@@ -200,3 +245,21 @@ def bit_slices(codes: torch.Tensor) -> torch.Tensor:
     mag = torch.abs(codes.to(torch.int32))
     shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=codes.device)
     return ((mag[..., None] >> shifts) & 1).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Conventional (misaligned) PTQ baseline — for the Fig. 12/13 comparisons.
+# ---------------------------------------------------------------------------
+
+def conventional_quantized_basis(x: torch.Tensor, cfg: ASPConfig
+                                 ) -> torch.Tensor:
+    """Post-training quantisation WITHOUT alignment: 2^n uniform levels over
+    [x_min, x_max] that do not line up with the knots, each input read at
+    its cell's midpoint through the float basis (on silicon, one LUT per
+    basis function)."""
+    n = 2 ** cfg.n_bits
+    step = (cfg.x_max - cfg.x_min) / n
+    q = torch.clamp(torch.floor(true_div(x - cfg.x_min, step)), 0, n - 1)
+    xq = cfg.x_min + (q + 0.5) * step
+    return splines.bspline_basis_uniform(
+        xq, cfg.x_min, cfg.x_max, cfg.grid_size, cfg.order)

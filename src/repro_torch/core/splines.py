@@ -1,10 +1,12 @@
 """B-spline machinery for KAN layers (port of ``repro.core.splines``).
 
-Uniform-grid specialisation only: for a point with local coordinate ``u``
-inside any knot interval, the K+1 active basis values depend only on ``u``
-(translation invariance of uniform B-splines). The ASP-KAN-HAQ SH-LUT
-(quant.py) samples these cardinal taps at the aligned quantisation
-midpoints.
+* ``bspline_basis`` — the generic Cox–de Boor recursion over an explicit
+  knot vector: the oracle of the tests and of grid-extension refits.
+* ``cardinal_taps`` — the uniform-grid specialisation: for a point with
+  local coordinate ``u`` inside any knot interval, the K+1 active basis
+  values depend only on ``u`` (translation invariance of uniform
+  B-splines). The ASP-KAN-HAQ SH-LUT (quant.py) samples these taps at the
+  aligned quantisation midpoints.
 
 Conventions: a KAN edge spline over ``[x_min, x_max]`` with grid size ``G``
 and order ``K`` has ``G + K`` basis functions over the uniformly extended
@@ -35,6 +37,24 @@ def make_knots(x_min: float, x_max: float, grid_size: int, order: int
     return x_min + (i - order) * h
 
 
+def bspline_basis(x: torch.Tensor, knots, order: int) -> torch.Tensor:
+    """Cox–de Boor: all G+K basis values at each point. x: [...];
+    knots: [G + 2K + 1] (uniformly extended). Returns [..., G+K] (rows sum
+    to 1 inside the grid range)."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    knots = torch.as_tensor(knots, dtype=dtype, device=x.device)
+    x = x[..., None].to(dtype)
+    # degree 0: the indicator of [t_i, t_{i+1}), one per knot interval
+    b = ((x >= knots[:-1]) & (x < knots[1:])).to(dtype)
+    for k in range(1, order + 1):
+        t_i, t_ik = knots[:-(k + 1)], knots[k:-1]
+        t_i1, t_ik1 = knots[1:-k], knots[k + 1:]
+        left = (x - t_i) / (t_ik - t_i) * b[..., :-1]
+        right = (t_ik1 - x) / (t_ik1 - t_i1) * b[..., 1:]
+        b = left + right
+    return b
+
+
 def cardinal_taps(u: torch.Tensor, order: int) -> torch.Tensor:
     """K+1 active uniform-B-spline values at local coordinate u in [0, 1).
 
@@ -58,11 +78,15 @@ def cardinal_taps(u: torch.Tensor, order: int) -> torch.Tensor:
 def locate(x: torch.Tensor, x_min: float, x_max: float, grid_size: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float-path (segment int32 in [0, G-1], u in [0, 1]); points outside
-    the range clamp to the first/last segment."""
+    the range clamp to the first/last segment. ``u`` is clipped by a
+    maximum, then a minimum, as ``jnp.clip`` does, so that its gradient is
+    JAX's: 1/2 where ``u`` lands exactly on 0 or 1 (a knot, or a range
+    end), where ``torch.clamp`` would pass all of it."""
     h = (x_max - x_min) / grid_size
     z = true_div(x - x_min, h)
     seg = torch.clamp(torch.floor(z), 0, grid_size - 1).to(torch.int32)
-    u = torch.clamp(z - seg, 0.0, 1.0)
+    u = torch.minimum(torch.maximum(z - seg, z.new_zeros(())),
+                      z.new_ones(()))
     return seg, u
 
 
@@ -87,3 +111,25 @@ def bspline_basis_uniform(x: torch.Tensor, x_min: float, x_max: float,
     seg, u = locate(x, x_min, x_max, grid_size)
     taps = cardinal_taps(u, order)
     return basis_from_taps(seg, taps, grid_size, order)
+
+
+def spline_eval_reference(x: torch.Tensor, coeffs: torch.Tensor,
+                          x_min: float, x_max: float, grid_size: int,
+                          order: int) -> torch.Tensor:
+    """Reference spline(x) = sum_i c_i B_i(x) for a single edge.
+    x: [...], coeffs: [G+K] -> [...]."""
+    basis = bspline_basis_uniform(x, x_min, x_max, grid_size, order)
+    return torch.einsum("...i,i->...", basis, coeffs)
+
+
+def lstsq_fit_coeffs(x: torch.Tensor, y: torch.Tensor, x_min: float,
+                     x_max: float, grid_size: int, order: int,
+                     reg: float = 1e-8) -> torch.Tensor:
+    """Least-squares fit of spline coefficients to (x, y) samples, through
+    the regularised normal equations. x: [N], y: [N, ...out] ->
+    coeffs [G+K, ...out]."""
+    a = bspline_basis_uniform(x, x_min, x_max, grid_size, order)  # [N, G+K]
+    ata = a.T @ a + reg * torch.eye(a.shape[-1], dtype=a.dtype,
+                                    device=a.device)
+    sol = torch.linalg.solve(ata, a.T @ y.reshape(y.shape[0], -1))
+    return sol.reshape((a.shape[-1],) + tuple(y.shape[1:]))

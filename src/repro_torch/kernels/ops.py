@@ -7,8 +7,10 @@ version for a tensor on the CPU, the CUDA kernel for a tensor on the card.
 There is no other branch and no fallback. The kernels count their launches;
 ``launch_counts``/``reset_launch_counts`` read and clear those counts.
 
-The QAT ``kan_spline_fused`` autograd wrapper belongs to the training slice
-and is not ported yet.
+``kan_spline_fused`` is the QAT autograd Function around the fused kernel
+(forward: quantised coefficients through the kernel; backward in plain
+torch: the straight-through float path for x, the exact quantised expanded
+basis for the coefficients).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import quant, splines
 from repro_torch.core.quant import ASPConfig
 from repro_torch.kernels import cim_mac as _cim
 from repro_torch.kernels import kan_fused as _kf
@@ -83,6 +85,56 @@ def kan_spline_fused_deployed(x: torch.Tensor, codes: torch.Tensor,
     else:
         y = _kf.kan_fused(xf, codes, scale, hemi.to(torch.float32), asp=asp)
     return y if flat_f32 else y.reshape(lead + (o,)).to(x.dtype)
+
+
+class _KanSplineFused(torch.autograd.Function):
+    """Forward quantised through the fused kernel, straight-through
+    backward (``repro.kernels.ops.kan_spline_fused``'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, coeffs, asp):
+        codes, scale = quant.quantize_coeffs(coeffs, asp, axis=(0, 1))
+        ctx.asp = asp
+        ctx.save_for_backward(x, coeffs)
+        return kan_spline_fused_deployed(x, codes, scale, asp)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, coeffs = ctx.saved_tensors
+        asp = ctx.asp
+        dyf = dy.to(torch.float32)
+        xf = x.to(torch.float32)
+        n_i, n_s, n_o = coeffs.shape
+        dx = dcoeffs = None
+        if ctx.needs_input_grad[1]:
+            # the exact quantised expanded basis: d/dcoeffs of E @ C
+            eq = quant.quantized_basis(xf, quant.hemi_for(asp, x.device), asp)
+            dcoeffs = (eq.reshape(-1, n_i * n_s).T @ dyf.reshape(-1, n_o)
+                       ).reshape(coeffs.shape).to(coeffs.dtype)
+        if ctx.needs_input_grad[0]:
+            # the float cardinal path's derivative (an encoder's input is
+            # data, whose float basis at full width is not built)
+            with torch.enable_grad():
+                xx = xf.detach().requires_grad_()
+                basis = splines.bspline_basis_uniform(
+                    xx, asp.x_min, asp.x_max, asp.grid_size, asp.order)
+                y = torch.einsum("...is,iso->...o", basis,
+                                 coeffs.to(torch.float32))
+                (dx,) = torch.autograd.grad(y, xx, dyf)
+            dx = dx.to(x.dtype)
+        return dx, dcoeffs, None
+
+
+def kan_spline_fused(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig
+                     ) -> torch.Tensor:
+    """Quantised fused spline for training: x [..., I] float (bounded),
+    coeffs [I, S, O] float. The forward quantises the coefficients
+    (``quantize_coeffs(..., axis=(0, 1))``) and runs the deployed wrapper:
+    the CUDA kernel on the card, its plain version on the CPU. The backward
+    is the straight-through estimator: d/dx through the float cardinal path,
+    d/dcoeffs the quantised expanded basis times dy. Returns [..., O] in
+    x.dtype; the gradients come back in their inputs' dtypes."""
+    return _KanSplineFused.apply(x, coeffs, asp)
 
 
 def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import quant
+from repro_torch.core import quant, splines
 from repro_torch.core.quant import ASPConfig
 
 
@@ -31,6 +31,28 @@ def kan_spline_ref(x: torch.Tensor, c_codes: torch.Tensor,
     e = basis.reshape(x.shape[0], -1).to(torch.float32)
     c = c_codes.to(torch.float32).reshape(e.shape[1], -1)
     return (e @ c) * scale[None, :]
+
+
+def kan_spline_dx_f64(x: torch.Tensor, coeffs: torch.Tensor,
+                      asp: ASPConfig, dy: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float64 version of the QAT spline's d/dx (``ops.kan_spline_fused``'s
+    straight-through backward): the derivative of the float cardinal path
+    ``einsum(bspline_basis_uniform(x), coeffs)`` against ``dy``, and the sum
+    of its terms' magnitudes. Each input's basis depends on it alone, so one
+    forward-mode pass gives every dB/dx.
+
+    x: [B, I] (bounded); coeffs: [I, S, O]; dy: [B, O]. Returns two [B, I]
+    float64 tensors.
+    """
+    def basis(z):
+        return splines.bspline_basis_uniform(z, asp.x_min, asp.x_max,
+                                             asp.grid_size, asp.order)
+    xx = x.double()
+    db = torch.func.jvp(basis, (xx,), (torch.ones_like(xx),))[1]
+    c, d = coeffs.double(), dy.double()
+    return (torch.einsum("bis,iso,bo->bi", db, c, d),
+            torch.einsum("bis,iso,bo->bi", db.abs(), c.abs(), d.abs()))
 
 
 def cim_mac_ref(v: torch.Tensor, w_codes: torch.Tensor,

@@ -2,6 +2,7 @@
 ``repro.models.cf_kan``).
 
 An encoder–decoder of two KAN layers over user→item interaction vectors,
+trained with a multinomial likelihood (QAT through ``kan.train_apply``) and
 scored by Recall@k / NDCG@k. Every fidelity runs through ``core.kan``: the
 training-path forward via ``kan.train_apply``, serving via ``kan.deploy`` →
 ``kan.apply`` on the ``fused`` backend or the ``cim`` crossbar simulator
@@ -50,10 +51,11 @@ def init(seed: Union[int, torch.Generator], cfg: CFKANConfig, *,
     return kan.init(seed, cfg.kan_spec, device=device)
 
 
-def apply(params: Dict, x: torch.Tensor, cfg: CFKANConfig) -> torch.Tensor:
+def apply(params: Dict, x: torch.Tensor, cfg: CFKANConfig, *,
+          qat: bool = False) -> torch.Tensor:
     """x: [B, n_items] interaction vector -> item logits (training-path
-    forward over float weights)."""
-    return kan.train_apply(params, x, cfg.kan_spec)
+    forward over float weights; fake-quantised under ``qat``)."""
+    return kan.train_apply(params, x, cfg.kan_spec, qat=qat)
 
 
 def deploy(params: Dict, cfg: CFKANConfig, *,
@@ -99,7 +101,15 @@ def collect_layer_stats(params: Dict, batches, cfg: CFKANConfig
     return {"enc": s_enc, "dec": s_dec}
 
 
-# --- metrics -----------------------------------------------------------------
+# --- loss & metrics ------------------------------------------------------------
+
+def multinomial_loss(params: Dict, x: torch.Tensor, cfg: CFKANConfig,
+                     qat: bool = False) -> torch.Tensor:
+    """Mult-VAE style: minus the softmax log-likelihood of the observed
+    interactions, summed per user and averaged over the batch."""
+    logp = torch.log_softmax(apply(params, x, cfg, qat=qat), dim=-1)
+    return -torch.mean(torch.sum(logp * x, dim=-1))
+
 
 def _top_k(scores: torch.Tensor, observed: torch.Tensor, k: int
            ) -> torch.Tensor:

@@ -138,9 +138,13 @@ def test_train_apply_forward_matches(setup, backend):
     np.testing.assert_array_equal(
         tk.apply_any(setup["params_t"], torch.from_numpy(setup["x"]),
                      spec_t).numpy(), got.numpy())
-    with pytest.raises(NotImplementedError):
-        tk.train_apply(setup["params_t"], torch.from_numpy(setup["x"]),
-                       spec_t, qat=True)
+    # the QAT forward (fake-quantised coefficients) matches JAX's too
+    want_q = jk.train_apply(setup["params_j"], jnp.asarray(setup["x"]),
+                            spec_j, qat=True)
+    got_q = tk.train_apply(setup["params_t"], torch.from_numpy(setup["x"]),
+                           spec_t, qat=True)
+    np.testing.assert_allclose(got_q.numpy(), np.asarray(want_q), atol=2e-5,
+                               rtol=1e-5)
 
 
 def test_serving_never_requantizes(setup, monkeypatch):

@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import cf_kan_1  # noqa: E402
-from repro_torch.core import kan  # noqa: E402
+from repro_torch.core import kan, kan_sam  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import mamba2_1p3b  # noqa: E402
 from repro_torch.models import cf_kan  # noqa: E402
@@ -71,6 +71,8 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         cf_kan.init(0, cf_kan_1.SMOKE_MODEL)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         kan.params_from_numpy({}, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kan_sam.collect_stats([], spec.asp[0], 4)
     lm = mamba2_1p3b.SMOKE.model
     with pytest.raises(RuntimeError, match="device='cpu'"):
         transformer.init_model(0, lm)

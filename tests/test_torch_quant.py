@@ -4,6 +4,8 @@ against the JAX reference (repro.core) on the same numpy inputs.
 Integer outputs (input codes, PowerGap split, coefficient codes, bit slices,
 WL-DAC levels) and the SH-LUT must match bit for bit; float bases allclose.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -42,6 +44,8 @@ def test_config_and_sh_lut_bitwise(g, k):
     ht = tq.hemi_for(b, "cpu")
     assert ht.dtype == torch.float32
     np.testing.assert_array_equal(ht.numpy(), hj)
+    # made once per config and device: an equal config shares the table
+    assert tq.hemi_for(dataclasses.replace(b), torch.device("cpu")) is ht
 
 
 @pytest.mark.parametrize("k", ORDERS)
