@@ -1,6 +1,6 @@
-"""Serve CF-KAN-1 and mamba2-1.3b and train CF-KAN-1 at full width on one
-CUDA card through the port's hand-written kernels, and hold every kernel
-against its plain version.
+"""Serve CF-KAN-1, mamba2-1.3b, the KAN-FFN LLM and mistral-nemo-12b and
+train CF-KAN-1 at full width on one CUDA card through the port's
+hand-written kernels, and hold every kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -56,9 +56,18 @@ Phases (any failed check raises, and the script exits non-zero):
    same stats, with the chip report: ``cim_mac_tiled`` must be launched.
 5. A small-input reference: a narrow CF-KAN served layer by layer on the
    card and on the CPU (plain versions) from one artifact and one input;
-   and mamba2 ``SMOKE`` at f32 from one set of weights on both: ``generate``
-   tokens identical, forward, prefill and decode logits within ``2e-4`` (the
-   JAX serving suite's bar).
+   and mamba2 ``SMOKE`` at f32, ``kan_llm`` ``SMOKE`` deployed on
+   ``lut_int8`` and on ``fused``, and mistral-nemo ``SMOKE`` at f32, each
+   from one set of weights on both: ``generate`` tokens identical, forward,
+   prefill and decode logits within ``2e-4`` (the JAX serving suite's bar).
+   A KAN-FFN quantises its inputs to 2^8 levels, so an input an ulp from a
+   level boundary can take the neighbouring code on one device: every KAN
+   layer's input codes are captured on both, and logits of a batch row from
+   the first position whose code differs on are held to ``BF16_REL`` of
+   their largest magnitude instead (the port's test rule); tokens must then
+   agree up to the first near tie. At f32 the codes that differ
+   independently of an earlier differing one must stay within 1e-3 of
+   those compared, so that a wrong kernel cannot widen its own bar.
 6. Fig. 18 on the kernel path: one 64 -> 64 KAN layer (G=8, batch 128),
    gamma0 0.2, sigma 0.05, chip seeds 0-2, As 128..1024, uniform and
    KAN-SAM mapping: the uniform error against ``lut`` must grow with As and
@@ -128,13 +137,38 @@ Phases (any failed check raises, and the script exits non-zero):
    busy time per step, its idle share of (b)'s window and median per step,
    ``kan_fused``'s part, and the ops whose kernels took the most.
 
+10. The KAN-FFN LLM and an attention LM at full width.
+   (a) ``kan_llm`` ``CONFIG`` (4 layers, d 256, 8/4 heads, KAN-FFN 256 ->
+   85 -> 256 with G 8, K 3, f32) from a seeded CUDA generator, deployed by
+   ``transformer.deploy_kan`` once per backend (``lut``, ``lut_int8`` with
+   ``kan_llm_int8``'s config, ``fused``); 16 prompts of 512 tokens from
+   ``lm_synth.batch_at(vocab=4096, batch=16, seq_len=512, seed=0)``;
+   ``decode.generate(n_new=32)`` launch-counted with
+   ``quant.quantize_coeffs`` poisoned: ``fused`` launches ``kan_fused``
+   exactly 8 times a pass (4 blocks x up/down), 256 in all, the others no
+   kernel; then the prefill and each decode step timed (host clock, ending
+   in a synchronize) and a forward. ``kan_fused`` is held as in phase 3 at
+   the path's shapes (the prefill's up [8192, 256] -> 85 and down [8192,
+   85] -> 256, a decode step's up [16, 256] -> 85 and down [16, 85] ->
+   256, inputs captured from the path); ``lut_int8``'s KAN-FFN of layer 0 on the prefill's input gives
+   bitwise the same int32 accumulators and f32 outputs on the card and on
+   the CPU; ``fused``'s greedy tokens equal ``lut``'s up to the first step
+   whose top-1 logit leads its top-2 by less than ``F32_PATH_BAR``.
+   (b) mistral-nemo-12b ``CONFIG`` (GQA 32/8, head_dim 128, d_ff 14336,
+   vocab 131072, bf16 compute, f32 parameters) at all 40 layers
+   (11,576,693,760 parameters, 46.31 GB f32, and ``forward``'s bf16
+   ``prescan_cast`` copy of them), 4 prompts of 2048 tokens (``batch_at(vocab=131072, batch=4,
+   seq_len=2048, seed=0)``): phase 8's path, checks and f32 control.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -146,12 +180,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
+from repro_torch.configs import kan_llm, kan_llm_int8  # noqa: E402
+from repro_torch.configs import mistral_nemo_12b  # noqa: E402
 from repro_torch.core import kan, kan_sam, quant, splines  # noqa: E402
 from repro_torch.data import cf_synth, lm_synth  # noqa: E402
 from repro_torch.examples import train_cf_kan  # noqa: E402
 from repro_torch.hw import chip, cim, tiles, variation  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import cim_mac as cim_kernels  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import cf_kan, layers  # noqa: E402
 from repro_torch.models import ssd as ssd_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -202,6 +239,15 @@ TRAIN_STEPS, TRAIN_LR = 100, 2e-2
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-5   # the JAX suite's gradient bar
 TRAIN_LOSS_REL = 0.05     # first loss against n_observed * ln(n_items)
 PROFILE_STEPS = 5
+# phase 10: the KAN-FFN LLM at full width on three backends, and
+# mistral-nemo-12b at full width and depth
+KAN_LLM_BATCH, KAN_LLM_PROMPT, KAN_LLM_NEW = 16, 512, 32
+KAN_LLM_PARAMS = 3_926_272
+KAN_BACKENDS = ("lut", "lut_int8", "fused")
+MISTRAL_LAYERS = 40
+MISTRAL_PARAMS = 11_576_693_760
+BF16_REL = 2 ** -6        # a differing KAN input code: the port's test rule
+MAX_FLIP_SHARE = 1e-3     # independent differing KAN input codes (f32)
 
 
 def check(ok: bool, what: str) -> None:
@@ -573,42 +619,156 @@ def fig18(dev):
     return rows
 
 
-def small_lm_reference(dev):
-    """mamba2 SMOKE at f32 from one set of weights on the CPU (plain
-    versions) and on the card (the kernel): forward, prefill, decode and
-    generate. Returns the worst logit difference."""
-    cfg = mamba2_1p3b.SMOKE.model
-    p_cpu = tfm.init_model(0, cfg, device="cpu")
+class KanCodes:
+    """While active, the input codes of every KAN layer call (the wrapped
+    ``kan.bound_input``), on the CPU, in call order."""
+
+    def __enter__(self):
+        self.calls, self._bound = [], kan.bound_input
+
+        def hook(x, asp):
+            xb = self._bound(x, asp)
+            self.calls.append(quant.quantize_input(xb, asp).cpu())
+            return xb
+        kan.bound_input = hook
+        return self
+
+    def __exit__(self, *exc):
+        kan.bound_input = self._bound
+
+
+def code_flips(a, b, offsets):
+    """Per KAN layer call, the (batch row, position) pairs at which the two
+    runs' input codes differ. ``a``, ``b``: KanCodes calls [B, s, I] in the
+    same order; ``offsets[c]``: call c's first position."""
+    assert len(a) == len(b), (len(a), len(b))
+    return [{(r, off + p) for r, p in torch.nonzero(ca != cb)[:, :2].tolist()}
+            for ca, cb, off in zip(a, b, offsets)]
+
+
+def first_flips(flips, n_rows):
+    """Per batch row, the first position whose codes differed (or None)."""
+    first = [None] * n_rows
+    for f in flips:
+        for r, p in f:
+            first[r] = p if first[r] is None else min(first[r], p)
+    return first
+
+
+def root_flips(flips, n_rows):
+    """How many differing (row, position) pairs of ``flips`` (in call
+    order) are independent events: a code that differs downstream of an
+    earlier one (the same row, a position at or after it) follows from it
+    and is not counted."""
+    first, roots = [None] * n_rows, 0
+    for f in flips:
+        roots += sum(1 for r, p in f if first[r] is None or p < first[r])
+        first = first_flips([f, {(r, q) for r, q in enumerate(first)
+                                 if q is not None}], n_rows)
+    return roots
+
+
+def small_lm_reference(dev, cfg, backend=None):
+    """An LM ``SMOKE`` config from one set of weights on the CPU (plain
+    versions) and on the card (the kernels), deployed with ``backend`` if
+    given: forward, prefill, decode and generate. Logits within
+    ``LM_SMALL_BAR``, tokens identical, except downstream of a KAN input
+    code that differs between the devices (the port's test rule: logits
+    within ``BF16_REL`` of their largest magnitude, tokens up to the first
+    step whose top-1 leads its top-2 by no more than twice that). At f32
+    the differing codes that do not follow from an earlier one must stay
+    within ``MAX_FLIP_SHARE`` of the codes compared, so that a wrong kernel,
+    whose error moves the next layer's codes everywhere, cannot widen its
+    own bar. Returns the worst logit difference and the independent
+    differing codes."""
+    if backend is not None:
+        cfg = dataclasses.replace(cfg, kan_backend=backend)
+    p_cpu = tfm.deploy_kan(tfm.init_model(0, cfg, device="cpu"), cfg)
     p_dev = tfm.tree_map(lambda t: t.to(dev), p_cpu)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 40)))          # T = 40: chunk 16 is ragged
-    worst = 0.0
+    worst, roots, n_codes = 0.0, 0, 0
+    label = cfg.name + ("" if backend is None else f" on {backend}")
 
-    def hold(got, want, what):
+    def run(fn, *args):
+        with KanCodes() as codes:
+            out = fn(*args)
+        return out, codes.calls
+
+    def count(flips, calls):
+        nonlocal roots, n_codes
+        roots += root_flips(flips, 2)
+        n_codes += sum(c.numel() for c in calls)
+
+    def hold(got, want, what, positions, first):
         nonlocal worst
-        err = float((got.cpu() - want).abs().max())
-        worst = max(worst, err)
-        check(err <= LM_SMALL_BAR, f"small LM reference {what}: card and "
-              f"CPU differ by {err:.3g} > {LM_SMALL_BAR}")
+        err = (got.cpu().float() - want.float()).abs().amax(-1)   # [B, s]
+        loose = torch.tensor([[f is not None and q >= f for q in positions]
+                              for f in first])
+        bar = torch.where(loose, BF16_REL * float(want.abs().max()),
+                          LM_SMALL_BAR)
+        worst = max(worst, float(err.max()))
+        check(bool((err <= bar).all()), f"small LM reference {label} {what}: "
+              f"card and CPU differ by {float(err.max()):.3g} (bars "
+              f"{LM_SMALL_BAR}, {BF16_REL * float(want.abs().max()):.3g} "
+              f"downstream of a differing KAN input code)")
 
-    hold(tfm.forward(p_dev, cfg, {"tokens": toks.to(dev)})[0],
-         tfm.forward(p_cpu, cfg, {"tokens": toks})[0], "forward")
+    n_kan = sum(sp.ffn == "kan" for sp in cfg.layer_specs()) * 2
+    (fc, _), cc = run(tfm.forward, p_cpu, cfg, {"tokens": toks})
+    (fd, _), cd = run(tfm.forward, p_dev, cfg, {"tokens": toks.to(dev)})
+    flips = code_flips(cc, cd, [0] * len(cc))
+    count(flips, cc)
+    hold(fd, fc, "forward", range(40), first_flips(flips, 2))
     s0 = 36
-    lc, cc = decode.prefill(p_cpu, cfg, {"tokens": toks[:, :s0]}, 40,
-                            last_only=True)
-    ld, cd = decode.prefill(p_dev, cfg, {"tokens": toks[:, :s0].to(dev)}, 40,
-                            last_only=True)
-    hold(ld, lc, "prefill")
+    (lc, kc), cc = run(decode.prefill, p_cpu, cfg, {"tokens": toks[:, :s0]},
+                       40, True)
+    (ld, kd), cd = run(decode.prefill, p_dev, cfg,
+                       {"tokens": toks[:, :s0].to(dev)}, 40, True)
+    ca, flips = list(cc), code_flips(cc, cd, [0] * len(cc))
+    hold(ld, lc, "prefill", [s0 - 1], first_flips(flips, 2))
     for i in range(s0, 40):
-        lc, cc = decode.decode_step(p_cpu, cc, toks[:, i:i + 1], i, cfg)
-        ld, cd = decode.decode_step(p_dev, cd, toks[:, i:i + 1].to(dev), i,
-                                    cfg)
-        hold(ld, lc, f"decode step {i}")
-    g_cpu = decode.generate(p_cpu, cfg, toks[:, :16], n_new=8)
-    g_dev = decode.generate(p_dev, cfg, toks[:, :16].to(dev), n_new=8)
-    check(torch.equal(g_dev.cpu(), g_cpu), "small LM reference: generate "
-          f"tokens differ: {g_dev.tolist()} vs {g_cpu.tolist()}")
-    return worst
+        (lc, kc), cc = run(decode.decode_step, p_cpu, kc, toks[:, i:i + 1], i,
+                           cfg)
+        (ld, kd), cd = run(decode.decode_step, p_dev, kd,
+                           toks[:, i:i + 1].to(dev), i, cfg)
+        ca, flips = ca + cc, flips + code_flips(cc, cd, [i] * len(cc))
+        hold(ld, lc, f"decode step {i}", [i], first_flips(flips, 2))
+    count(flips, ca)
+    g_cpu, cc = run(decode.generate, p_cpu, cfg, toks[:, :16], 8)
+    g_dev, cd = run(decode.generate, p_dev, cfg, toks[:, :16].to(dev), 8)
+    offs = [0] * n_kan + [16 + c // max(n_kan, 1) for c in
+                          range(len(cc) - n_kan)]
+    flips = code_flips(cc, cd, offs)
+    count(flips, cc)
+    first = first_flips(flips, 2)
+    g_dev = g_dev.cpu()
+    if cfg.dtype == torch.float32:
+        check(roots <= MAX_FLIP_SHARE * n_codes, f"small LM reference "
+              f"{label}: {roots} independent KAN input codes differ between "
+              f"the card and the CPU, over {MAX_FLIP_SHARE} of {n_codes}")
+    if any(f is not None for f in first):
+        # the CPU's own logits at each generated step, to find near ties
+        lg, kv = decode.prefill(p_cpu, cfg, {"tokens": toks[:, :16]}, 24,
+                                True)
+        steps = [lg[:, -1]]
+        for j in range(7):
+            lg, kv = decode.decode_step(p_cpu, kv, g_cpu[:, j:j + 1], 16 + j,
+                                        cfg)
+            steps.append(lg[:, 0])
+        for r, f in enumerate(first):
+            tie = 2 * BF16_REL * float(torch.stack(steps).abs().max())
+            until = next((j for j, lg in enumerate(steps) if f is not None
+                          and 15 + j >= f and float(
+                              (lambda t: t[0] - t[1])(torch.topk(
+                                  lg[r].float(), 2).values)) <= tie), 8)
+            check(torch.equal(g_dev[r, :until], g_cpu[r, :until]),
+                  f"small LM reference {label}: generate tokens differ in "
+                  f"row {r}: {g_dev[r].tolist()} vs {g_cpu[r].tolist()}")
+    else:
+        check(torch.equal(g_dev, g_cpu), f"small LM reference {label}: "
+              f"generate tokens differ: {g_dev.tolist()} vs "
+              f"{g_cpu.tolist()}")
+    return worst, roots, n_codes
 
 
 # --- phase 7: ssd_scan against its plain versions ----------------------------
@@ -795,7 +955,7 @@ def teacher_forced(params, cfg, prompt, toks):
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     launches_fwd = ops.launch_counts()
-    check(logits_f.shape == (LM_BATCH, full.shape[1], cfg.vocab)
+    check(logits_f.shape == (prompt.shape[0], full.shape[1], cfg.vocab)
           and bool(torch.isfinite(logits_f).all()),
           f"forward logits {tuple(logits_f.shape)} or not finite")
     return (logits_p[:, -1], torch.stack(step_logits, dim=1), logits_f,
@@ -829,10 +989,19 @@ def paths_agree(label, logits_p, logits_d, logits_f, bar):
             f"{label}_greedy_equal_to_forward_argmax": int(agree.sum())}
 
 
-def lm_main_path(params, cfg, prompt):
-    """Phase 8: generate, the same prefill and decode steps timed, and
-    forward at full width and bf16 compute; then the f32 control on the
-    same weights and tokens. Returns the metrics and the launch counts."""
+def check_launches(what, launches, expected):
+    """Each kernel launched exactly ``expected.get(name, 0)`` times."""
+    for name, n in launches.items():
+        check(n == expected.get(name, 0), f"{what}: {name} launched {n} "
+              f"times, not {expected.get(name, 0)}")
+
+
+def lm_main_path(params, cfg, prompt, expected):
+    """Phases 8 and 10b: generate, the same prefill and decode steps timed,
+    and forward at full width and bf16 compute; then the f32 control on the
+    same weights and tokens. ``expected``: each kernel's launches in
+    generate and in forward (the others none). Returns the metrics and the
+    launch counts."""
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -843,15 +1012,11 @@ def lm_main_path(params, cfg, prompt):
     check(toks.shape == (LM_BATCH, LM_NEW), f"generate gave {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           "generate: tokens out of the vocabulary")
-    check(launches_gen["ssd_scan"] == cfg.n_layers,
-          f"ssd_scan ran {launches_gen['ssd_scan']} times in generate's "
-          f"prefill, not {cfg.n_layers}")
+    check_launches(f"{cfg.name} generate", launches_gen, expected)
     lp, ld, lf, times, launches_fwd = teacher_forced(params, cfg, prompt,
                                                      toks)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches_fwd["ssd_scan"] == cfg.n_layers,
-          f"ssd_scan ran {launches_fwd['ssd_scan']} times in forward, not "
-          f"{cfg.n_layers}")
+    check_launches(f"{cfg.name} forward", launches_fwd, expected)
     check(torch.equal(torch.argmax(lp, -1), toks[:, 0])
           and torch.equal(torch.argmax(ld, -1), toks[:, 1:]),
           "the timed prefill and decode steps do not repeat generate")
@@ -1145,6 +1310,383 @@ def train_phase(timer, params, cfg, ds, art):
     return out, krows, launches_train, launches_eval
 
 
+# --- phase 10: the KAN-FFN LLM and mistral-nemo-12b at full width -----------
+
+@contextlib.contextmanager
+def quantisation_poisoned():
+    """While active, ``quant.quantize_coeffs`` raises: serving a deployed
+    model must never requantise its coefficients."""
+    orig = quant.quantize_coeffs
+
+    def boom(*args, **kwargs):
+        raise AssertionError("quant.quantize_coeffs was called while "
+                             "serving a deployed model")
+    quant.quantize_coeffs = boom
+    try:
+        yield
+    finally:
+        quant.quantize_coeffs = orig
+
+
+def capture_fused_inputs(params, cfg, prompt, toks):
+    """The bounded inputs that layer 0's KAN-FFN hands ``kan_fused`` in a
+    prefill of ``prompt`` and in the first decode step (up and down in
+    each), with the layers of the artifact: [(label, x [rows, I], layer,
+    asp)]."""
+    seen, orig = [], ops.kan_spline_fused_deployed
+
+    def spy(x, codes, scale, asp, hemi=None):
+        seen.append(x.reshape(-1, x.shape[-1]).clone())
+        return orig(x, codes, scale, asp, hemi=hemi)
+    ops.kan_spline_fused_deployed = spy
+    try:
+        _, cache = decode.prefill(params, cfg, {"tokens": prompt},
+                                  prompt.shape[1] + 1, last_only=True)
+        n_prefill = len(seen)
+        decode.decode_step(params, cache, toks[:, :1], prompt.shape[1], cfg)
+    finally:
+        ops.kan_spline_fused_deployed = orig
+    up, down = tfm.layer_of(params["stages"][0], 0)["l0"]["kan"].layers
+    asp = cfg.kan_spec.asp[0]
+    return [(f"kan_llm {what} {name} [{x.shape[0]}, {x.shape[1]}]", x,
+             layer, asp)
+            for what, at in (("prefill", 0), ("decode", n_prefill))
+            for name, layer, x in (("up", up, seen[at]),
+                                   ("down", down, seen[at + 1]))]
+
+
+def lut_int8_card_equals_cpu(params, x_up):
+    """Layer 0's KAN-FFN on ``lut_int8`` on the card and on the CPU from
+    one artifact: each layer fed the same bounded input (the down layer the
+    CPU's up output), the int32 accumulators and the f32 outputs bitwise
+    equal. Returns the number of values compared."""
+    art = tfm.layer_of(params["stages"][0], 0)["l0"]["kan"]
+    spec, backend = art.spec, kan.get_backend("lut_int8")
+    x_cpu, n = x_up.cpu(), 0
+    for i, layer in enumerate(art.layers):
+        lspec = spec.layer(i)
+        on_cpu = tfm.tree_map(lambda t: t.cpu(), layer)
+        accs, ys = [], []
+        for lay, xx in ((layer, x_cpu.to(x_up.device)), (on_cpu, x_cpu)):
+            e = quant.quantized_basis(xx, lay.hemi_q, lspec.asp
+                                      ).reshape(xx.shape[0], -1)
+            accs.append(kan.int8_matmul(e, lay.codes_t,
+                                        lay.codes.shape[-1]).cpu())
+            ys.append(backend.run(lay, lspec, spec, xx).cpu())
+        check(accs[0].dtype == torch.int32 and torch.equal(*accs),
+              f"lut_int8 layer {i}: int32 accumulators differ between the "
+              f"card and the CPU in {int((accs[0] != accs[1]).sum())} places")
+        check(torch.equal(*ys), f"lut_int8 layer {i}: outputs differ "
+              f"between the card and the CPU by "
+              f"{float((ys[0] - ys[1]).abs().max()):.3g}")
+        n += accs[0].numel()
+        if i + 1 < len(art.layers):
+            x_cpu = kan.bound_input(ys[1] + kan.base_branch(
+                x_cpu, on_cpu.w_base, spec.base_activation),
+                spec.layer(i + 1).asp)
+    return n
+
+
+# the model functions whose device time a serving profile reports by name:
+# (span, module, function)
+SPANS = (("attention", attn_lib, "chunked_attention"),
+         ("attention", attn_lib, "windowed_attention"),
+         ("attention", attn_lib, "decode_attention"),
+         ("kv_cache", attn_lib, "cache_update"),
+         ("qkv_projections", tfm, "qkv"), ("out_projection", tfm, "heads_out"),
+         ("mlp_ffn", tfm, "mlp_ffn"), ("kan_ffn", tfm, "kan_ffn"),
+         ("norm_unembed", tfm, "logits_from"))
+
+
+@contextlib.contextmanager
+def spans():
+    """While active, each function of ``SPANS`` runs inside a profiler
+    range of its span's name (the module attributes are wrapped, then
+    restored)."""
+    saved = []
+    for name, mod, attr in SPANS:
+        fn = getattr(mod, attr)
+
+        def wrapped(*args, _fn=fn, _name=name, **kwargs):
+            with torch.profiler.record_function(_name):
+                return _fn(*args, **kwargs)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, wrapped)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def top_kernels(ms_by_name, n):
+    """The ``n`` kernel names (template arguments and parameters dropped,
+    so that the instances of one kernel add up) with the most time."""
+    out = {}
+    for name, ms in ms_by_name.items():
+        short = re.split(r"[<(]", re.sub(r"^void |\(anonymous namespace\)::",
+                                         "", name))[0][:56]
+        out[short] = out.get(short, 0.0) + ms
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
+
+
+def serve_profile(params, cfg, prompt, toks, steps=3):
+    """Device time of one prefill (last position unembedded) and of
+    ``steps`` decode steps, from ``torch.profiler`` traces: the device's
+    busy time (its kernels and copies, the spans' own device-side ranges
+    left out), each span's device time (the kernels launched by the ops
+    under its range, each kernel counted once, through the op it is linked
+    to), the kernels linked to no op (``kan_fused``'s, launched through
+    ctypes, are not), and the kernels that took the most. The spans must
+    sum to at most the busy time. Empty where the trace holds no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = {n for n, _, _ in SPANS}
+
+    def summary(prof, reps):
+        evs = prof.events()
+        kernels = [e for e in evs if e.device_type == DeviceType.CUDA
+                   and e.name not in names
+                   and not getattr(e, "is_user_annotation", False)]
+        if not kernels:
+            return {}
+        by_kernel = {}
+        for e in kernels:
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3 / reps)
+        busy = sum(by_kernel.values())
+        span_ms, linked, seen = {}, {}, set()
+        for e in evs:
+            ks = [k for k in e.kernels if k.name not in names]
+            if e.device_type != DeviceType.CPU or not ks or e.id in seen:
+                continue
+            seen.add(e.id)
+            p = e
+            while p is not None and p.name not in names:
+                p = p.cpu_parent
+            where = p.name if p is not None else "outside spans"
+            for k in ks:
+                ms = k.duration / 1e3 / reps
+                span_ms[where] = span_ms.get(where, 0.0) + ms
+                linked[k.name] = linked.get(k.name, 0.0) + ms
+        check(sum(span_ms.values()) <= busy * (1 + 1e-6),
+              f"{cfg.name} serving profile: the spans sum to "
+              f"{sum(span_ms.values()):.4f} ms, over the device's busy "
+              f"{busy:.4f} ms")
+        unlinked = {k: v - linked.get(k, 0.0) for k, v in by_kernel.items()
+                    if v - linked.get(k, 0.0) > 1e-6}
+        return dict(device_ms=busy, span_ms=span_ms,
+                    unlinked_ms=sum(unlinked.values()),
+                    unlinked_kernels_ms=top_kernels(unlinked, 4),
+                    kan_fused_kernels_ms=sum(
+                        v for k, v in by_kernel.items() if "kan_fused" in k),
+                    top_kernels_ms=top_kernels(by_kernel, 8))
+
+    s = prompt.shape[1]
+    out = {}
+    with spans():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, cache = decode.prefill(params, cfg, {"tokens": prompt},
+                                      s + steps + 1, last_only=True)
+            torch.cuda.synchronize()
+        out["prefill"] = summary(prof, 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                _, cache = decode.decode_step(params, cache, toks[:, i:i + 1],
+                                              s + i, cfg)
+            torch.cuda.synchronize()
+        out["decode_step"] = summary(prof, steps)
+    return out
+
+
+def print_profile(label, prof, step_ms):
+    """One line per profiled pass; the decode step's idle share is taken
+    against the unprofiled median step time."""
+    def r4(d):
+        return json.dumps({k: round(v, 4) for k, v in d.items()})
+    for what, p in prof.items():
+        if not p:
+            print(f"{label} {what} profile: not measured (no device times in "
+                  "the trace)")
+            continue
+        idle = (f", idle {1 - p['device_ms'] / step_ms:.3f} of the "
+                f"unprofiled median step {step_ms:.3f} ms"
+                if what == "decode_step" else "")
+        print(f"{label} {what} profile: device {p['device_ms']:.4f} ms"
+              f"{idle}; by span {r4(p['span_ms'])}, linked to no op "
+              f"{p['unlinked_ms']:.4f} {r4(p['unlinked_kernels_ms'])} "
+              f"(kan_fused kernels {p['kan_fused_kernels_ms']:.4f}); top "
+              f"kernels {r4(p['top_kernels_ms'])}")
+
+
+def kan_llm_phase(timer, dev):
+    """Phase 10a. Returns the metrics, the ``kan_fused`` rows at the path's
+    shapes and the ``kan_fused`` launches of the fused generate and
+    forward."""
+    base = kan_llm.CONFIG.model
+    data = lm_synth.batch_at(lm_synth.LMDataConfig(
+        vocab=base.vocab, batch=KAN_LLM_BATCH, seq_len=KAN_LLM_PROMPT,
+        seed=0), 0)
+    prompt = torch.from_numpy(data["tokens"]).to(dev)
+    t0 = time.perf_counter()
+    params = tfm.init_model(0, base)
+    torch.cuda.synchronize()
+    n_params = tfm.count_params(params)
+    check(n_params == KAN_LLM_PARAMS, f"kan_llm has {n_params:,} parameters, "
+          f"not {KAN_LLM_PARAMS:,}")
+    spec = base.kan_spec
+    print(f"phase 10a init: {base.name}, {n_params:,} parameters "
+          f"({base.n_layers} layers, d_model {base.d_model}, heads "
+          f"{base.n_heads}/{base.n_kv_heads}, KAN-FFN {spec.dims} G "
+          f"{base.kan_grid} K {base.kan_order} L "
+          f"{spec.asp[0].levels_per_interval}), compute {base.dtype}, on the "
+          f"card in {time.perf_counter() - t0:.2f} s; prompts "
+          f"{KAN_LLM_BATCH}x{KAN_LLM_PROMPT}, generate {KAN_LLM_NEW}")
+    kan_per_pass = 2 * sum(sp.ffn == "kan" for sp in base.layer_specs())
+    out, steps, toks_by, deployed, launches_fused = {}, {}, {}, {}, 0
+    for backend in KAN_BACKENDS:
+        cfg = (kan_llm_int8.CONFIG.model if backend == "lut_int8" else
+               dataclasses.replace(base, kan_backend=backend))
+        t0 = time.perf_counter()
+        dep = tfm.deploy_kan(params, cfg)
+        torch.cuda.synchronize()
+        deploy_s = time.perf_counter() - t0
+        per_pass = {"kan_fused": kan_per_pass} if backend == "fused" else {}
+        with quantisation_poisoned():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            toks = decode.generate(dep, cfg, prompt, n_new=KAN_LLM_NEW)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            launches_gen = ops.launch_counts()
+            check_launches(f"kan_llm {backend} generate", launches_gen,
+                           {k: v * KAN_LLM_NEW for k, v in per_pass.items()})
+            lp, ld, lf, times, launches_fwd = teacher_forced(dep, cfg, prompt,
+                                                             toks)
+            check_launches(f"kan_llm {backend} forward", launches_fwd,
+                           per_pass)
+        launches_fused += launches_gen["kan_fused"] + launches_fwd["kan_fused"]
+        check(toks.shape == (KAN_LLM_BATCH, KAN_LLM_NEW) and bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"kan_llm {backend}: generate gave {tuple(toks.shape)}")
+        check(torch.equal(torch.argmax(lp, -1), toks[:, 0])
+              and torch.equal(torch.argmax(ld, -1), toks[:, 1:]),
+              f"kan_llm {backend}: the timed prefill and decode steps do not "
+              "repeat generate")
+        s = prompt.shape[1]
+        step_ms = times["step_ms"]
+        out[backend] = dict(
+            deploy_s=deploy_s, generate_s=gen_s, prefill_s=times["prefill_s"],
+            decode_ms_median=float(np.median(step_ms)),
+            decode_ms_all=[round(t, 3) for t in step_ms],
+            decode_tokens_per_s=KAN_LLM_BATCH / (float(np.median(step_ms))
+                                                 / 1e3),
+            forward_s=times["forward_s"], forward_T=times["forward_T"],
+            launches_generate=launches_gen, launches_forward=launches_fwd,
+            prefill_vs_forward_max_abs=float(
+                (lp - lf[:, s - 1]).abs().max()),
+            decode_vs_forward_max_abs=float((ld - lf[:, s:]).abs().max()))
+        steps[backend] = torch.cat([lp[:, None], ld], dim=1)
+        toks_by[backend], deployed[backend] = toks, (dep, cfg)
+        del lf
+        out[backend]["profile"] = serve_profile(dep, cfg, prompt, toks)
+        print(f"phase 10a kan_llm {backend}: deploy {deploy_s:.3f} s, prefill "
+              f"{KAN_LLM_BATCH}x{KAN_LLM_PROMPT} {times['prefill_s']:.4f} s, "
+              f"decode {out[backend]['decode_ms_median']:.3f} ms per step of "
+              f"{KAN_LLM_BATCH} ({out[backend]['decode_tokens_per_s']:.1f} "
+              f"tokens/s), generate {gen_s:.3f} s, forward T="
+              f"{times['forward_T']} {times['forward_s']:.4f} s; launches "
+              f"generate {launches_gen}, forward {launches_fwd}; prefill / "
+              f"decode vs forward max|logit diff| "
+              f"{out[backend]['prefill_vs_forward_max_abs']:.3g} / "
+              f"{out[backend]['decode_vs_forward_max_abs']:.3g}")
+        print_profile(f"phase 10a kan_llm {backend}",
+                      out[backend]["profile"],
+                      out[backend]["decode_ms_median"])
+    # fused against lut: the same greedy tokens up to lut's first near tie
+    top2 = torch.topk(steps["lut"].float(), 2, dim=-1).values
+    near = ((top2[..., 0] - top2[..., 1]) < F32_PATH_BAR).any(dim=0)
+    until = int(torch.nonzero(near)[0]) if bool(near.any()) else KAN_LLM_NEW
+    check(torch.equal(toks_by["fused"][:, :until], toks_by["lut"][:, :until]),
+          f"kan_llm: fused and lut greedy tokens differ before step {until}, "
+          f"lut's first top-1/top-2 lead under {F32_PATH_BAR}")
+    out["fused_vs_lut"] = dict(
+        steps_compared=until,
+        tokens_equal_share=float((toks_by["fused"] == toks_by["lut"])
+                                 .float().mean()),
+        max_abs_logit_diff=float((steps["fused"] - steps["lut"]).abs().max()))
+    out["lut_int8_vs_lut"] = dict(
+        tokens_equal_share=float((toks_by["lut_int8"] == toks_by["lut"])
+                                 .float().mean()),
+        max_abs_logit_diff=float((steps["lut_int8"] - steps["lut"])
+                                 .abs().max()))
+    print(f"phase 10a fused vs lut: tokens equal through step {until} (lut's "
+          f"first lead under {F32_PATH_BAR}); " + json.dumps(
+              {k: out[k] for k in ("fused_vs_lut", "lut_int8_vs_lut")}))
+    # kan_fused at the path's shapes, and lut_int8 on the card and the CPU
+    inputs = capture_fused_inputs(*deployed["fused"], prompt,
+                                  toks_by["fused"])
+    rows = []
+    for label, x, layer, asp in inputs:
+        rows.append(check_kan_fused(timer, label, x, layer, asp))
+        rows[-1]["on_path"] = False   # the line's ms stays per CF-KAN apply
+    n = lut_int8_card_equals_cpu(deployed["lut_int8"][0], inputs[0][1])
+    out["lut_int8_card_equals_cpu_values"] = n
+    print(f"phase 10a lut_int8: layer 0's KAN-FFN on the prefill's input, "
+          f"{n:,} int32 accumulators and f32 outputs bitwise equal on the "
+          f"card and the CPU")
+    return out, rows, launches_fused
+
+
+def mistral_phase(dev):
+    """Phase 10b: mistral-nemo-12b at full width, ``MISTRAL_LAYERS`` of
+    its 40 layers."""
+    cfg = dataclasses.replace(mistral_nemo_12b.CONFIG.model,
+                              n_layers=MISTRAL_LAYERS)
+    data = lm_synth.batch_at(lm_synth.LMDataConfig(
+        vocab=cfg.vocab, batch=LM_BATCH, seq_len=LM_PROMPT, seed=0), 0)
+    prompt = torch.from_numpy(data["tokens"]).to(dev)
+    t0 = time.perf_counter()
+    params = tfm.init_model(0, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tfm.count_params(params)
+    check(n_params == MISTRAL_PARAMS, f"mistral-nemo-12b at {MISTRAL_LAYERS} "
+          f"layers has {n_params:,} parameters, not {MISTRAL_PARAMS:,}")
+    print(f"phase 10b init: {cfg.name}, {cfg.n_layers} of its "
+          f"{mistral_nemo_12b.CONFIG.model.n_layers} layers, {n_params:,} "
+          f"parameters ({4 * n_params / 1e9:.2f} GB f32; d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"compute {cfg.dtype}, params {cfg.param_dtype}, on the card in "
+          f"{init_s:.2f} s")
+    metrics, launches_gen, launches_fwd = lm_main_path(params, cfg, prompt,
+                                                       {})
+    metrics["init_s"] = init_s
+    toks = decode.generate(params, cfg, prompt, n_new=4)
+    metrics["profile"] = serve_profile(params, cfg, prompt, toks)
+    metrics["phase_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    metrics["card_gb"] = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print_profile("phase 10b mistral-nemo-12b", metrics["profile"],
+                  metrics["decode_ms_median"])
+    print("phase 10b mistral-nemo-12b: " + json.dumps(metrics))
+    print(f"phase 10b mistral-nemo-12b: prefill {LM_BATCH}x{LM_PROMPT} "
+          f"{metrics['prefill_s']:.3f} s, decode "
+          f"{metrics['decode_ms_median']:.2f} ms per step of {LM_BATCH} "
+          f"tokens ({metrics['decode_tokens_per_s']:.1f} tokens/s), generate "
+          f"{LM_NEW} tokens {metrics['generate_s']:.3f} s, forward "
+          f"T={metrics['forward_T']} {metrics['forward_s']:.3f} s, peak "
+          f"{metrics['peak_gb']:.2f} GB to the bf16 forward, "
+          f"{metrics['phase_peak_gb']:.2f} GB over the phase, of the card's "
+          f"{metrics['card_gb']:.2f} GB; launches generate {launches_gen}, "
+          f"forward {launches_fwd}")
+    return metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1310,9 +1852,16 @@ def main() -> int:
     # 5. small-input references (card against CPU)
     worst = small_reference(dev)
     print(f"small reference, card vs CPU max|err|: {worst}")
-    worst_lm = small_lm_reference(dev)
-    print(f"small LM reference (mamba2 SMOKE, f32), card vs CPU max|err|: "
-          f"{worst_lm:.3g}; generate tokens identical")
+    for lcfg, backend in ((mamba2_1p3b.SMOKE.model, None),
+                          (kan_llm.SMOKE.model, "lut_int8"),
+                          (kan_llm.SMOKE.model, "fused"),
+                          (mistral_nemo_12b.SMOKE.model, None)):
+        worst_lm, roots, n_codes = small_lm_reference(dev, lcfg, backend)
+        print(f"small LM reference ({lcfg.name} SMOKE"
+              + (f" on {backend}" if backend else "")
+              + f", {lcfg.dtype}), card vs CPU max|err|: {worst_lm:.3g}; "
+              f"independent KAN input codes differing between the devices: "
+              f"{roots} of {n_codes}; generate tokens checked")
 
     # 6. Fig. 18 on the kernel path
     fig18(dev)
@@ -1356,8 +1905,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. the LM main path at full width, launch-counted
-    lm_metrics, launches_gen, launches_fwd = lm_main_path(lparams, lcfg,
-                                                          prompt)
+    lm_metrics, launches_gen, launches_fwd = lm_main_path(
+        lparams, lcfg, prompt, {"ssd_scan": lcfg.n_layers})
     launches["ssd_scan"] = launches_gen["ssd_scan"] + launches_fwd["ssd_scan"]
     print(f"LM main path: launches generate {launches_gen}, forward "
           f"{launches_fwd}")
@@ -1397,6 +1946,26 @@ def main() -> int:
     print("phase 9: " + json.dumps({k: v for k, v in train9.items()
                                     if k != "step_ms_all"}))
     print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
+    # 10. the KAN-FFN LLM on three backends, then mistral-nemo-12b
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kan10, krows10, launches10 = kan_llm_phase(timer, dev)
+    rows["kan_fused"].extend(krows10)
+    launches["kan_fused"] += launches10
+    for r in krows10:
+        print(f"kernel kan_fused {r['shape']}: max|err| {r['max_abs_err']:.3g}"
+              f", err/sum|terms| {r['max_err_over_sum_abs_terms']:.3g}, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f}, host "
+              f"{r['host_ms']:.4f} (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})")
+    print("phase 10a: " + json.dumps(kan10))
+    print(f"phase 10a: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mistral_phase(dev)
+    print(f"phase 10b: {time.perf_counter() - t0:.1f} s")
 
     # result lines
     kernels = []

@@ -26,7 +26,13 @@ ARCH_IDS = [
 ]
 AUX_ARCH_IDS = ["kan_llm", "kan_llm_int8"]
 # the LM archs whose every layer is ported
-PORTED = ("mamba2_1p3b",)
+PORTED = ("mamba2_1p3b", "mistral_nemo_12b", "phi3_medium_14b", "qwen2_72b",
+          "nemotron_4_340b", "kan_llm", "kan_llm_int8")
+# the others, and the ROADMAP slice that ports them
+LATER = {"mixtral_8x7b": "D4 (MoE)", "kimi_k2_1t_a32b": "D4 (MoE)",
+         "recurrentgemma_2b": "D5 (RG-LRU)",
+         "whisper_base": "D6 (encoder-decoder, cross attention)",
+         "internvl2_76b": "D6 (the vision stub)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +79,10 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; available: "
                        f"{ARCH_IDS + AUX_ARCH_IDS}")
     if name not in PORTED:
+        where = (f"ROADMAP Slice {LATER[name]}" if name in LATER else
+                 f"import repro_torch.configs.{name} directly")
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ported: {list(PORTED)}): "
-            "ROADMAP Slice D (kan_llm: D3; the other LM archs: D2-D6; "
-            "cf_kan_*: import repro_torch.configs.cf_kan_* directly)")
+            f"{where}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.SMOKE if smoke else mod.CONFIG

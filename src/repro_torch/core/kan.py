@@ -14,8 +14,11 @@
                   kernel ``kernels/csrc/cim_mac_tiled.cu``) — per-tile IR
                   drop/ADC/variation, int32 digital partial-sum reduction,
                   empty-row compaction + within-tile KAN-SAM (``spec.cim``
-                  holds a ``hw.chip.ChipConfig``).
-  (``lut_int8`` is not ported yet.)
+                  holds a ``hw.chip.ChipConfig``),
+    - ``lut_int8``: the expanded-basis contraction kept integer end to end
+                  (int8 basis codes from the deploy-time int8 SH-LUT x int8
+                  coefficient codes -> int32, ``torch._int_mm``), one f32
+                  rescale after it.
 * **deploy(params, spec, stats=None, chip_uid=0) → DeployedKAN** — done
   ONCE: int8 codes + per-output-channel scales, the SH-LUT, the bit-slice
   image and the KAN-SAM row order/attenuation, or the chip placement.
@@ -123,6 +126,13 @@ class KANSpec:
         """One KAN layer with flat {"coeffs", "w_base"} params."""
         return cls(dims=(in_dim, out_dim), asp=(asp,), **kw)
 
+    @classmethod
+    def ffn(cls, d_model: int, hidden: int, asp: ASPConfig, **kw
+            ) -> "KANSpec":
+        """Transformer KAN-FFN: d_model -> hidden -> d_model (up/down)."""
+        kw.setdefault("layer_names", ("up", "down"))
+        return cls(dims=(d_model, hidden, d_model), asp=(asp,), **kw)
+
 
 def param_count(spec: KANSpec) -> int:
     """Trainable parameter count of the spec (coeffs + base weights)."""
@@ -162,9 +172,11 @@ def bound_input(x: torch.Tensor, asp: ASPConfig) -> torch.Tensor:
 
 def base_branch(x: torch.Tensor, w_base: torch.Tensor, activation: str
                 ) -> torch.Tensor:
-    """The b(x) residual branch: ``act(x) @ w_base``."""
+    """The b(x) residual branch: ``act(x) @ w_base``, in the promoted dtype
+    as JAX computes a mixed product (bf16 x with f32 weights runs in f32)."""
     act = {"relu": torch.relu, "silu": torch.nn.functional.silu}[activation]
-    return act(x) @ w_base
+    rt = torch.promote_types(x.dtype, w_base.dtype)
+    return act(x).to(rt) @ w_base.to(rt)
 
 
 def spline_ref(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig
@@ -208,6 +220,8 @@ class DeployedLayer:
     atten: Optional[torch.Tensor] = None    # [R] f32 row attenuation (cim)
     row_order: Optional[torch.Tensor] = None  # [R] int32 phys-of-logical
     slices: Optional[torch.Tensor] = None   # [I, S, O, 8] uint8 (cim)
+    hemi_q: Optional[torch.Tensor] = None   # [ceil(L/2), K+1] int8 (lut_int8)
+    codes_t: Optional[torch.Tensor] = None  # [O8, I*S8] int8 (lut_int8)
     tiles: Optional[Any] = None             # hw.chip.TiledLayer (cim_tiled)
 
 
@@ -308,6 +322,63 @@ class LutBackend(KANBackend):
         c = layer.codes.to(torch.float32).reshape(ik, -1)
         y = e @ c
         return (y * layer.scale.reshape(-1).to(torch.float32)).to(x.dtype)
+
+
+def _up8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def int8_operand(c: torch.Tensor) -> torch.Tensor:
+    """The int8 coefficient codes [K, N] as ``int8_matmul`` takes them:
+    transposed to [N, K] and zero-padded to multiples of 8 (cuBLASLt's
+    int8 product wants K and N so, and B column-major, which ``.t()`` of
+    this gives)."""
+    k, n = c.shape
+    return torch.nn.functional.pad(c.t(), (0, _up8(k) - k, 0, _up8(n) - n)
+                                   ).contiguous()
+
+
+def int8_matmul(e: torch.Tensor, c_t: torch.Tensor, n: int) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> exact int32 [M, N] (``torch._int_mm``),
+    B given as ``int8_operand(B)``. The rows of ``e`` are padded with zeros
+    to more than 16 and a multiple of 8 and its columns to B's padded K,
+    as the card wants (the product stays exact)."""
+    (m, k), kp = e.shape, c_t.shape[1]
+    mp = max(24, _up8(m))
+    ep = torch.nn.functional.pad(e, (0, kp - k, 0, mp - m))
+    return torch._int_mm(ep, c_t.t())[:m, :n]
+
+
+@register_backend("lut_int8")
+class LutInt8Backend(KANBackend):
+    """The expanded-basis contraction stays integer end to end: int8 basis
+    codes (the deploy-time int8 SH-LUT's taps, the WL-DAC view) x int8
+    coefficient codes, accumulated in int32; one f32 multiply after it folds
+    the coefficient scale and the basis LSB. The artifact is ``lut``'s plus
+    the int8 SH-LUT; it differs from ``lut`` by the basis quantisation
+    error only (<= 0.5/127 per tap). The int32 sums are exact, so they
+    equal the reference's bit for bit on any device (an f32 product would
+    not be exact: 2816 * 127^2 is over 2^24)."""
+
+    def deploy_extras(self, codes, scale, lspec, spec, stats, *,
+                      layer_idx=0):
+        """Quantise the SH-LUT and lay out the codes for the int8 product
+        once, at deploy time."""
+        return {"hemi_q": quant.quantize_hemi(
+                    quant.hemi_for(lspec.asp, codes.device)),
+                "codes_t": int8_operand(codes.reshape(-1, codes.shape[-1]))}
+
+    def run(self, layer, lspec, spec, x, generator=None):
+        basis = quant.quantized_basis(x, layer.hemi_q, lspec.asp)   # int8
+        lead = basis.shape[:-2]
+        ik = basis.shape[-2] * basis.shape[-1]
+        acc = int8_matmul(basis.reshape(-1, ik), layer.codes_t,
+                          layer.codes.shape[-1]).reshape(lead + (-1,))
+        lsb = torch.full((), quant.HEMI_LSB, dtype=torch.float32,
+                         device=acc.device)
+        y = acc.to(torch.float32) * (
+            layer.scale.reshape(-1).to(torch.float32) * lsb)
+        return y.to(x.dtype)
 
 
 @register_backend("fused")
@@ -424,19 +495,21 @@ def _init_layer(gen: torch.Generator, lspec: KANLayerShape, spec: KANSpec,
                 device) -> Dict[str, torch.Tensor]:
     """Small-noise spline coefficients + LeCun base weights."""
     shape = (lspec.in_dim, lspec.asp.n_basis, lspec.out_dim)
-    coeffs = torch.randn(shape, generator=gen) * (0.1 / lspec.in_dim ** 0.5)
+    coeffs = (torch.randn(shape, generator=gen, device=gen.device)
+              * (0.1 / lspec.in_dim ** 0.5))
     params = {"coeffs": coeffs.to(device=device, dtype=spec.dtype)}
     if spec.base_activation:
-        w_b = (torch.randn((lspec.in_dim, lspec.out_dim), generator=gen)
-               / lspec.in_dim ** 0.5)
+        w_b = (torch.randn((lspec.in_dim, lspec.out_dim), generator=gen,
+                           device=gen.device) / lspec.in_dim ** 0.5)
         params["w_base"] = w_b.to(device=device, dtype=spec.dtype)
     return params
 
 
 def init(seed: Union[int, torch.Generator], spec: KANSpec, *, device=None):
     """Init the param tree for a spec (flat for a bare single layer). The
-    draws come from a CPU ``torch.Generator`` (seeded from ``seed`` if it is
-    an int), so a seed gives the same weights on every device."""
+    draws come from ``seed`` if it is a generator (on its own device), else
+    from a CPU ``torch.Generator`` seeded with it, so a seed gives the same
+    weights on every device."""
     device = resolve_device(device)
     gen = seed
     if not isinstance(gen, torch.Generator):
@@ -477,6 +550,7 @@ def deploy(params, spec: KANSpec, stats=None, *, chip_uid: int = 0
             codes=codes, scale=scale.to(torch.float32), hemi=hemi,
             w_base=lp.get("w_base"), atten=extras.get("atten"),
             row_order=extras.get("row_order"), slices=extras.get("slices"),
+            hemi_q=extras.get("hemi_q"), codes_t=extras.get("codes_t"),
             tiles=extras.get("tiles")))
     return DeployedKAN(tuple(layers), spec)
 
@@ -572,7 +646,8 @@ def deployed_from_numpy(layers: Sequence[Mapping], spec: KANSpec,
     names to numpy arrays (or None) — e.g. a JAX ``DeployedKAN``'s layers —
     so both packages can serve one identical artifact. A ``tiles`` entry is
     itself a mapping of ``hw.chip.TiledLayer`` field names to arrays (its
-    gains included)."""
+    gains included). A ``lut_int8`` artifact without ``codes_t`` (JAX's has
+    none) gets it from its codes."""
     from repro_torch.hw import chip as chip_lib
     device = resolve_device(device)
     fields = [f.name for f in dataclasses.fields(DeployedLayer)]
@@ -584,5 +659,8 @@ def deployed_from_numpy(layers: Sequence[Mapping], spec: KANSpec,
             kw["tiles"] = chip_lib.TiledLayer(**{
                 k: None if a is None else _to_tensor(a, device)
                 for k, a in layer["tiles"].items()})
+        if "hemi_q" in kw and "codes_t" not in kw:
+            codes = kw["codes"]
+            kw["codes_t"] = int8_operand(codes.reshape(-1, codes.shape[-1]))
         out.append(DeployedLayer(**kw))
     return DeployedKAN(tuple(out), spec)

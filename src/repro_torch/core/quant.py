@@ -238,6 +238,21 @@ def dequantize_coeffs(codes: torch.Tensor, scale: torch.Tensor
     return codes.to(torch.float32) * scale
 
 
+# int8 SH-LUT for the lut_int8 backend: the cardinal taps lie in [0, 1], so
+# one fixed LSB of 1/127 quantises the whole table. It is built at deploy
+# time; the serving path only gathers the frozen int8 taps, so the expanded
+# basis is an int8 tensor and the contraction stays integer.
+HEMI_LSB = 1.0 / 127.0
+
+
+def quantize_hemi(hemi: torch.Tensor) -> torch.Tensor:
+    """f32 SH-LUT [ceil(L/2), K+1] -> int8 codes (dequantised: codes *
+    HEMI_LSB): ``round(hemi / f32(1/127))``, a true f32 division by the f32
+    value of the LSB as in the reference, rounded half to even."""
+    return torch.round(true_div(hemi.to(torch.float32), HEMI_LSB)
+                       ).to(torch.int8)
+
+
 def bit_slices(codes: torch.Tensor) -> torch.Tensor:
     """Alg. 1 Phase B: int8 magnitude -> 8 binary slices, MSB first.
     codes [...] int8 -> [..., 8] uint8 in {0, 1}; the sign is kept apart

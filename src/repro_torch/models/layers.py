@@ -18,7 +18,6 @@ import math
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -80,9 +79,30 @@ def dense_init(gen: Optional[torch.Generator], d_in: int, d_out,
 
 # --- activations -------------------------------------------------------------
 
+def _const(v: float, x: Tensor) -> Tensor:
+    """A constant rounded to x's dtype first, as a weakly typed constant is
+    in JAX (at bf16, 0.044715 becomes 0.0446777...)."""
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def sigmoid(x: Tensor) -> Tensor:
+    """``jax.nn.sigmoid`` as XLA lowers it: ``1 / (1 + exp(-x))``, op by
+    op in x's dtype (at bf16 each op rounds, as there)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: Tensor) -> Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``, op by op in x's dtype."""
+    return x * sigmoid(x)
+
+
 def gelu(x: Tensor) -> Tensor:
-    """``jax.nn.gelu``'s default: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu``'s default, the tanh approximation, op by op in x's
+    dtype as XLA computes it: ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x +
+    0.044715 * x*x*x))))`` with both constants in x's dtype."""
+    inner = _const(math.sqrt(2 / math.pi), x) * (
+        x + _const(0.044715, x) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def squared_relu(x: Tensor) -> Tensor:
@@ -92,7 +112,7 @@ def squared_relu(x: Tensor) -> Tensor:
 
 ACTIVATIONS = {
     "gelu": gelu,
-    "silu": F.silu,
+    "silu": silu,
     "relu": torch.relu,
     "relu2": squared_relu,
 }

@@ -1,17 +1,21 @@
-"""Unified LM (port of ``repro.models.transformer``), as far as the SSM
-serving slice needs it: the config types, the stage grouping, init,
-forward and parameter counting, for models whose layers are ``ssd`` mixers
-without an FFN (mamba2-1.3b).
+"""Unified LM (port of ``repro.models.transformer``): the config types, the
+stage grouping, init, forward, parameter counting and ``deploy_kan``, for
+decoder-only models whose layers mix with ``attn`` (full causal GQA),
+``swa`` (sliding window), ``local`` (Griffin local attention), ``bidir``
+(bidirectional) or ``ssd`` and whose FFN is ``mlp``, ``kan`` (the paper's
+ASP-KAN-HAQ KAN-FFN through ``core.kan``) or none.
 
 The parameter tree keeps the JAX layout, so weights carry across leaf by
 leaf (``params_from_numpy``): ``{"embed", "final_norm": {"scale"},
-"stages": [{"l0": {"mixer_norm", "ssd": {...}}}]}``, each stage's leaves
-stacked on a leading ``[repeats]`` axis. Stages run as a Python loop over
-their repeats; JAX's ``remat``/``scan_layers`` choices have no effect on
-the result and none here. Sharding (``dist.sharding.shard``) is Slice F.
+"stages": [{"l0": {"mixer_norm", "attn": {...}, "ffn_norm", "mlp": ...}}]}``,
+each stage's leaves stacked on a leading ``[repeats]`` axis (a deployed
+KAN-FFN is one ``kan.DeployedKAN`` whose tensors carry that axis). Stages
+run as a Python loop over their repeats; JAX's ``remat``/``scan_layers``
+choices have no effect on the result and none here. Sharding
+(``dist.sharding.shard``) is Slice F.
 
-Other mixers and FFNs raise ``NotImplementedError`` naming the ROADMAP
-slice that ports them.
+Other mixers, FFNs and families raise ``NotImplementedError`` naming the
+ROADMAP slice that ports them.
 """
 from __future__ import annotations
 
@@ -21,28 +25,24 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import kan
 from repro_torch.core.kan import params_from_numpy  # noqa: F401 (the LM's)
+from repro_torch.core.quant import ASPConfig
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import ssd as ssd_lib
 
 Tensor = torch.Tensor
 
+ATTN_MIXERS = ("attn", "swa", "local", "bidir")
+
 # what is not ported yet, and the ROADMAP slice that ports it
 LATER = {
-    "attn": "Slice D2 (attention, with the attention archs)",
-    "swa": "Slice D2 (attention, with the attention archs)",
-    "local": "Slice D2 (attention, with the attention archs)",
-    "bidir": "Slice D2 (attention, with the attention archs)",
-    "cross_attn": "Slice D2 (attention, with the attention archs)",
-    "mlp": "Slice D2 (attention, with the attention archs)",
-    "kan": "Slice D3 (kan_llm through kan.apply_any)",
+    "cross_attn": "Slice D6 (the other configs: cross attention, whisper)",
     "moe": "Slice D4 (MoE)",
     "rglru": "Slice D5 (RG-LRU)",
-    "encdec": "Slice D6 (the other configs)",
+    "encdec": "Slice D6 (the other configs: cross attention, whisper)",
     "frontend": "Slice D6 (the other configs)",
-    # the JAX package casts the parameters to the compute dtype before the
-    # layer scan so that FSDP gathers move bf16
-    "prescan_cast": "Slice F (distribution)",
 }
 
 
@@ -53,12 +53,13 @@ def not_ported(what: str, name: str) -> NotImplementedError:
 
 def check_ported(spec: "LayerSpec") -> None:
     """Raise for a layer with parts of a later slice: ported are the
-    ``ssd`` (or no) mixer without an FFN."""
-    if spec.mixer not in ("ssd", "none"):
+    attention and ``ssd`` mixers (or none) and the ``mlp`` and ``kan``
+    FFNs (or none), without cross attention."""
+    if spec.mixer not in ATTN_MIXERS + ("ssd", "none"):
         raise not_ported("mixer", spec.mixer)
     if spec.cross_attn:
         raise not_ported("layer part", "cross_attn")
-    if spec.ffn != "none":
+    if spec.ffn not in ("mlp", "kan", "none"):
         raise not_ported("ffn", spec.ffn)
 
 
@@ -114,7 +115,7 @@ class ModelConfig:
     kan_hidden: int = 0                  # 0 -> d_ff // (G + K + 1)
     kan_grid: int = 8
     kan_order: int = 3
-    kan_backend: str = "lut"             # core.kan registry: ref|lut|fused|cim
+    kan_backend: str = "lut"             # a core.kan backend name
     # execution
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
@@ -123,7 +124,7 @@ class ModelConfig:
     attn_kv_chunk: int = 512
     # perf levers of the JAX package
     ce_impl: str = "gather"              # "gather" | "onehot" (sharded-safe)
-    prescan_cast: bool = False           # Slice F: raises when set
+    prescan_cast: bool = False           # cast params to compute dtype once
     kv_shard_mode: str = "head_dim"      # "head_dim" | "replicate" for KV
     moe_serve_stationary: bool = False   # weights-stationary MoE at decode
     pad_attn_heads: int = 0              # 0 = off; else multiple to pad to
@@ -144,6 +145,15 @@ class ModelConfig:
     @property
     def padded_kv_heads(self) -> int:
         return self._pad(self.n_kv_heads)
+
+    @property
+    def kan_spec(self) -> kan.KANSpec:
+        asp = ASPConfig(grid_size=self.kan_grid, order=self.kan_order)
+        hidden = self.kan_hidden or max(
+            8, self.d_ff // (self.kan_grid + self.kan_order + 1))
+        return kan.KANSpec.ffn(self.d_model, hidden, asp,
+                               backend=self.kan_backend,
+                               dtype=self.param_dtype)
 
     @property
     def ssd_cfg(self) -> ssd_lib.SSDConfig:
@@ -209,12 +219,28 @@ def stages_for(cfg: ModelConfig, n_layers: Optional[int] = None,
 # parameter trees
 # ---------------------------------------------------------------------------
 
+def _fields(node) -> List[str]:
+    """The fields of an artifact node (``kan.DeployedLayer`` or
+    ``hw.chip.TiledLayer``) that hold tensors or further nodes."""
+    return [f.name for f in dataclasses.fields(node)]
+
+
 def tree_map(fn, tree):
-    """``fn`` on every tensor leaf of nested dicts and lists."""
+    """``fn`` on every tensor leaf of nested dicts, lists and deployed KAN
+    artifacts (``kan.DeployedKAN`` keeps its spec; a ``None`` field stays
+    ``None``)."""
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
+    if isinstance(tree, kan.DeployedKAN):
+        return kan.DeployedKAN(tuple(tree_map(fn, l) for l in tree.layers),
+                               tree.spec)
+    if tree is None:
+        return None
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f: tree_map(fn, getattr(tree, f)) for f in _fields(tree)})
     return fn(tree)
 
 
@@ -223,6 +249,12 @@ def tree_leaves(tree) -> List[Tensor]:
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
+    if isinstance(tree, kan.DeployedKAN):
+        return tree_leaves(list(tree.layers))
+    if tree is None:
+        return []
+    if dataclasses.is_dataclass(tree):
+        return tree_leaves([getattr(tree, f) for f in _fields(tree)])
     return [tree]
 
 
@@ -231,11 +263,22 @@ def tree_stack(trees: Sequence) -> Any:
     first = trees[0]
     if isinstance(first, Mapping):
         return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, kan.DeployedKAN):
+        return kan.DeployedKAN(tuple(
+            tree_stack([t.layers[i] for t in trees])
+            for i in range(len(first.layers))), first.spec)
+    if first is None:
+        return None
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f: tree_stack([getattr(t, f) for t in trees])
+            for f in _fields(first)})
     return torch.stack(list(trees))
 
 
 def layer_of(tree, r: int):
-    """Repeat ``r`` of a stacked stage tree (views, no copies)."""
+    """Repeat ``r`` of a stacked stage tree (views, no copies; a view of
+    one repeat of a contiguous stack is contiguous, as the kernels want)."""
     return tree_map(lambda a: a[r], tree)
 
 
@@ -247,22 +290,82 @@ def count_params(params) -> int:
 # init
 # ---------------------------------------------------------------------------
 
+def _init_attn(gen, cfg: ModelConfig, device) -> Dict:
+    """Q/K/V/O projections [D, H, hd] / [H, hd, D]; with ``pad_attn_heads``
+    the head counts are padded with zero heads (as in the reference; its
+    GQA grouping then follows the padded counts)."""
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
+    pdt = cfg.param_dtype
+    wq = layers.dense_init(gen, cfg.d_model, (cfg.n_heads, hd), dtype=pdt,
+                           device=device)
+    wk = layers.dense_init(gen, cfg.d_model, (cfg.n_kv_heads, hd),
+                           dtype=pdt, device=device)
+    wv = layers.dense_init(gen, cfg.d_model, (cfg.n_kv_heads, hd),
+                           dtype=pdt, device=device)
+    wo = (layers.normal(gen, (cfg.n_heads, hd, cfg.d_model), device)
+          * (cfg.n_heads * hd) ** -0.5).to(pdt)
+    if hq != cfg.n_heads or hkv != cfg.n_kv_heads:
+        pad = torch.nn.functional.pad
+        wq = pad(wq, (0, 0, 0, hq - cfg.n_heads))
+        wk = pad(wk, (0, 0, 0, hkv - cfg.n_kv_heads))
+        wv = pad(wv, (0, 0, 0, hkv - cfg.n_kv_heads))
+        wo = pad(wo, (0, 0, 0, 0, 0, hq - cfg.n_heads))
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq, hd), dtype=pdt, device=device)
+        p["bk"] = torch.zeros((hkv, hd), dtype=pdt, device=device)
+        p["bv"] = torch.zeros((hkv, hd), dtype=pdt, device=device)
+    return p
+
+
+def _init_mlp(gen, cfg: ModelConfig, device) -> Dict:
+    pdt = cfg.param_dtype
+    p = {"wi": layers.dense_init(gen, cfg.d_model, cfg.d_ff, dtype=pdt,
+                                 device=device),
+         "wo": layers.dense_init(gen, cfg.d_ff, cfg.d_model, dtype=pdt,
+                                 device=device)}
+    if cfg.gated_mlp:
+        p["wg"] = layers.dense_init(gen, cfg.d_model, cfg.d_ff, dtype=pdt,
+                                    device=device)
+    return p
+
+
 def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device) -> Dict:
     check_ported(spec)
     p: Dict[str, Any] = {}
-    if spec.mixer == "ssd":
-        p["mixer_norm"] = layers.NORM_INIT[cfg.norm](cfg.d_model, device)
+    norm = layers.NORM_INIT[cfg.norm]
+    if spec.mixer in ATTN_MIXERS:
+        p["mixer_norm"] = norm(cfg.d_model, device)
+        p["attn"] = _init_attn(gen, cfg, device)
+    elif spec.mixer == "ssd":
+        p["mixer_norm"] = norm(cfg.d_model, device)
         p["ssd"] = ssd_lib.init_ssd_block(gen, cfg.ssd_cfg, device)
+    if spec.ffn == "mlp":
+        p["ffn_norm"] = norm(cfg.d_model, device)
+        p["mlp"] = _init_mlp(gen, cfg, device)
+    elif spec.ffn == "kan":
+        p["ffn_norm"] = norm(cfg.d_model, device)
+        p["kan"] = kan.init(gen, cfg.kan_spec, device=device)
     return p
 
 
 def _init_stage(gen, stage: Stage, cfg: ModelConfig, device) -> Dict:
+    """A stage's params, its repeats stacked. Each repeat is copied into
+    the stack as soon as it is drawn, so that making a stage takes its own
+    size and one block's, not twice its size."""
     def init_block():
         return {f"l{i}": _init_layer(gen, sp, cfg, device)
                 for i, sp in enumerate(stage.block)}
+    block = init_block()
     if stage.repeats == 1:
-        return init_block()
-    return tree_stack([init_block() for _ in range(stage.repeats)])
+        return block
+    out = tree_map(lambda a: a.new_empty((stage.repeats,) + a.shape), block)
+    for r in range(stage.repeats):
+        block = block if r == 0 else init_block()
+        for dst, src in zip(tree_leaves(out), tree_leaves(block)):
+            dst[r].copy_(src)
+    return out
 
 
 def generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
@@ -302,26 +405,111 @@ def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig) -> Tensor:
+def heads_in(xn: Tensor, w: Tensor, dtype) -> Tensor:
+    """``einsum("bsd,dhk->bshk", xn, w.astype(dtype))``."""
+    d, h, k = w.shape
+    return layers.matmul(xn, w.to(dtype).reshape(d, h * k)).reshape(
+        xn.shape[:-1] + (h, k))
+
+
+def heads_out(o: Tensor, wo: Tensor, dtype) -> Tensor:
+    """``einsum("bshk,hkd->bsd", o, wo.astype(dtype))``."""
+    h, k, d = wo.shape
+    return layers.matmul(o.reshape(o.shape[:-2] + (h * k,)),
+                         wo.to(dtype).reshape(h * k, d))
+
+
+def qkv(p, xn: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor, Tensor]:
+    """Q, K and V [B, S, H, hd] in the compute dtype, with their biases."""
+    a = p["attn"]
+    q, k, v = (heads_in(xn, a[w], cfg.dtype) for w in ("wq", "wk", "wv"))
+    if "bq" in a:
+        q = q + a["bq"].to(cfg.dtype)
+        k = k + a["bk"].to(cfg.dtype)
+        v = v + a["bv"].to(cfg.dtype)
+    return q, k, v
+
+
+def _attn_mixer(p, x: Tensor, cfg: ModelConfig, spec: LayerSpec,
+                positions: Tensor) -> Tensor:
+    xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+    q, k, v = qkv(p, xn, cfg)
+    if spec.mixer != "bidir" and cfg.rope_theta:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if spec.mixer == "swa" and cfg.window:
+        o = attn_lib.windowed_attention(q, k, v, window=cfg.window)
+    elif spec.mixer == "local" and cfg.local_window:
+        o = attn_lib.windowed_attention(q, k, v, window=cfg.local_window)
+    else:
+        o = attn_lib.chunked_attention(q, k, v,
+                                       causal=(spec.mixer != "bidir"),
+                                       kv_chunk=cfg.attn_kv_chunk)
+    return heads_out(o, p["attn"]["wo"], cfg.dtype)
+
+
+def mlp_ffn(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    xn = layers.NORM_APPLY[cfg.norm](p["ffn_norm"], x)
+    act = layers.ACTIVATIONS[cfg.activation]
+    h = layers.matmul(xn, p["mlp"]["wi"].to(cfg.dtype))
+    if cfg.gated_mlp:
+        h = act(layers.matmul(xn, p["mlp"]["wg"].to(cfg.dtype))) * h
+    else:
+        h = act(h)
+    return layers.matmul(h, p["mlp"]["wo"].to(cfg.dtype))
+
+
+def kan_ffn(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The KAN-FFN: a ``kan.DeployedKAN`` runs the frozen integer artifact,
+    a raw param tree the training-path forward (``kan.apply_any``)."""
+    xn = layers.NORM_APPLY[cfg.norm](p["ffn_norm"], x)
+    return kan.apply_any(p["kan"], xn, cfg.kan_spec).to(x.dtype)
+
+
+def apply_ffn(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig) -> Tensor:
+    """The residual stream after the layer's FFN (if it has one)."""
+    if spec.ffn == "mlp":
+        x = x + mlp_ffn(p, x, cfg)
+    elif spec.ffn == "kan":
+        x = x + kan_ffn(p, x, cfg)
+    return x
+
+
+def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
+                 positions: Tensor) -> Tensor:
     check_ported(spec)
-    if spec.mixer == "ssd":
+    if spec.mixer in ATTN_MIXERS:
+        x = x + _attn_mixer(p, x, cfg, spec, positions)
+    elif spec.mixer == "ssd":
         xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
         # the block returns f32; the residual add is in the compute dtype
         x = x + ssd_lib.apply_ssd_block(p["ssd"], xn, cfg.ssd_cfg
                                         ).to(x.dtype)
-    return x
+    return apply_ffn(p, x, spec, cfg)
+
+
+def prescan_cast(stage_params, cfg: ModelConfig):
+    """Every f32 or bf16 leaf of the stages (norm scales included) in the
+    compute dtype, before the layer loop, as the reference's
+    ``prescan_cast`` (there so that FSDP gathers move bf16). A leaf already
+    in the compute dtype is the same tensor, not a copy."""
+    def cast(t):
+        return (t.to(cfg.dtype) if t.dtype in (torch.float32, torch.bfloat16)
+                else t)
+    return tree_map(cast, stage_params)
 
 
 def _run_stages(stage_params, stages: Sequence[Stage], x: Tensor,
                 cfg: ModelConfig) -> Tensor:
     """Every layer in order, a stage's repeats in a Python loop."""
     if cfg.prescan_cast:
-        raise not_ported("option", "prescan_cast")
+        stage_params = prescan_cast(stage_params, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
     for st_params, stage in zip(stage_params, stages):
         for r in range(stage.repeats):
             lp = st_params if stage.repeats == 1 else layer_of(st_params, r)
             for i, spec in enumerate(stage.block):
-                x = _apply_layer(lp[f"l{i}"], x, spec, cfg)
+                x = _apply_layer(lp[f"l{i}"], x, spec, cfg, positions)
     return x
 
 
@@ -357,3 +545,44 @@ def forward(params, cfg: ModelConfig, batch: Mapping
     x = _run_stages(params["stages"], stages_for(cfg), x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits_from(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# serving deployment: freeze KAN-FFN subtrees into integer artifacts
+# ---------------------------------------------------------------------------
+
+def deploy_kan(params, cfg: ModelConfig):
+    """Replace every ``p["kan"]`` subtree with a frozen ``kan.DeployedKAN``
+    (int8 codes + scales + SH-LUT, and the backend's extras), built exactly
+    once: serving then runs no coefficient quantisation. A stacked stage is
+    deployed one repeat at a time, repeat ``r`` with chip uid ``n_blocks +
+    r`` (the reference's vmap over an iota), and the artifacts stacked on
+    the layer axis. Idempotent: returns ``params`` itself when the model has
+    no KAN layers or is deployed already."""
+    if not any(sp.ffn == "kan" for sp in cfg.layer_specs()):
+        return params
+    spec = cfg.kan_spec
+    changed = False
+    new_stages = []
+    n_blocks = 0   # a chip-unique uid per KAN block (cim_tiled's draws)
+    for st_params, stage in zip(params["stages"], stages_for(cfg)):
+        blk = dict(st_params)
+        for i, sp in enumerate(stage.block):
+            if sp.ffn != "kan":
+                continue
+            lp = dict(blk[f"l{i}"])
+            if not isinstance(lp["kan"], kan.DeployedKAN):
+                if stage.repeats == 1:
+                    lp["kan"] = kan.deploy(lp["kan"], spec, chip_uid=n_blocks)
+                else:
+                    lp["kan"] = tree_stack([
+                        kan.deploy(layer_of(lp["kan"], r), spec,
+                                   chip_uid=n_blocks + r)
+                        for r in range(stage.repeats)])
+                blk[f"l{i}"] = lp
+                changed = True
+            n_blocks += stage.repeats
+        new_stages.append(blk)
+    if not changed:
+        return params
+    return {**params, "stages": new_stages}

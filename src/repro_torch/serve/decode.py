@@ -1,15 +1,22 @@
 """Serving: prefill (build caches) and single-token decode steps (port of
-``repro.serve.decode``, restricted to static-batch serving of SSD models).
+``repro.serve.decode``, restricted to static-batch serving).
 
-Cache layout per ``ssd`` layer (stacked [repeats, ...] inside a repeated
-stage): the recurrent state [B, H, P, N] f32 and the depthwise conv's ring
-buffer [B, K-1, di+2N] in the compute dtype. The prefill's scan runs the
-``ssd_scan`` kernel on the card (``models.ssd.ssd_chunked``), which also
-gives the final state the cache keeps.
+Cache layouts per layer (stacked [repeats, ...] inside a repeated stage):
+  attn        — K/V caches [B, T, Kv, hd] in the compute dtype, T =
+                ``max_len``;
+  swa, local  — K/V ring buffers of T = min(window, max_len) slots: token
+                at position i lives in slot i mod T (softmax does not depend
+                on the slots' order);
+  ssd         — the recurrent state [B, H, P, N] f32 and the depthwise
+                conv's ring buffer [B, K-1, di+2N] in the compute dtype. The
+                prefill's scan runs the ``ssd_scan`` kernel on the card
+                (``models.ssd.ssd_chunked``), which also gives the final
+                state the cache keeps.
+A ``bidir`` mixer has no cache and, as in the reference, prefill and decode
+skip it (it serves an encoder, which is Slice D6).
 
-Attention caches, the paged pool (``pages``) and the continuous-batching
-engine behind a list-of-prompts ``generate`` are later slices (ROADMAP D2
-and E).
+The paged pool (``pages``) and the continuous-batching engine behind a
+list-of-prompts ``generate`` are ROADMAP Slice E.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models import layers
@@ -26,9 +34,24 @@ from repro_torch.models.transformer import LayerSpec, ModelConfig
 Tensor = torch.Tensor
 
 
+def _kv_len(spec: LayerSpec, cfg: ModelConfig, max_len: int
+            ) -> Tuple[int, bool]:
+    """(cache slots, rolling) of an attention layer."""
+    if spec.mixer == "swa" and cfg.window:
+        return min(cfg.window, max_len), True
+    if spec.mixer == "local" and cfg.local_window:
+        return min(cfg.local_window, max_len), True
+    return max_len, False
+
+
 def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
-                      device) -> Dict[str, Tensor]:
+                      max_len: int, device) -> Dict[str, Tensor]:
     tfm.check_ported(spec)
+    if spec.mixer in ("attn", "swa", "local"):
+        t, _ = _kv_len(spec, cfg, max_len)
+        shape = (batch, t, cfg.padded_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
     if spec.mixer == "ssd":
         return ssd_lib.init_ssd_cache(batch, cfg.ssd_cfg, cfg.dtype, device)
     return {}
@@ -37,12 +60,12 @@ def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> list:
     """Cache tree parallel to params["stages"] (``device=None``: the
-    card). ``max_len`` sizes attention caches (Slice D2); SSD layers keep
-    O(1) state."""
+    card). ``max_len`` sizes the attention caches; SSD layers keep O(1)
+    state."""
     device = resolve_device(device)
     out = []
     for stage in tfm.stages_for(cfg):
-        blk = {f"l{i}": _init_layer_cache(sp, cfg, batch, device)
+        blk = {f"l{i}": _init_layer_cache(sp, cfg, batch, max_len, device)
                for i, sp in enumerate(stage.block)}
         if stage.repeats > 1:
             blk = tfm.tree_map(lambda x, r=stage.repeats: x[None].repeat(
@@ -51,19 +74,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
-def _decode_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig
-                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """x: [B, 1, D]. An SSD layer needs no position: its state carries it."""
+def _decode_positions(index, device):
+    """RoPE positions of the decoded token: [1] for an int or a scalar
+    tensor index, [B, 1] for a [B] tensor."""
+    if isinstance(index, int):
+        return torch.full((1,), index, device=device)
+    return index[:, None] if index.ndim else index.reshape(1)
+
+
+def _decode_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
+                  index) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: [B, 1, D]; index: the 0-based position of the decoded token, a
+    scalar or a [B] vector. An SSD layer does not read it: its state
+    carries the position."""
     tfm.check_ported(spec)
     new_cache = dict(cache)
-    if spec.mixer == "ssd":
+    if spec.mixer in ("attn", "swa", "local"):
+        xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+        q, k, v = tfm.qkv(p, xn, cfg)
+        if cfg.rope_theta:
+            pos = _decode_positions(index, x.device)
+            q = layers.apply_rope(q, pos, cfg.rope_theta)
+            k = layers.apply_rope(k, pos, cfg.rope_theta)
+        rolling = spec.mixer in ("swa", "local")
+        ck, cv = attn_lib.cache_update(cache["k"], cache["v"], k, v, index,
+                                       rolling=rolling)
+        new_cache["k"], new_cache["v"] = ck, cv
+        o = attn_lib.decode_attention(q, ck, cv, index + 1, rolling=rolling)
+        x = x + tfm.heads_out(o, p["attn"]["wo"], cfg.dtype)
+    elif spec.mixer == "ssd":
         xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
         y, sc = ssd_lib.apply_ssd_block_decode(
             p["ssd"], xn, {"state": cache["state"],
                            "conv_buf": cache["conv_buf"]}, cfg.ssd_cfg)
         new_cache.update(sc)
         x = x + y.to(x.dtype)
-    return x, new_cache
+    return tfm.apply_ffn(p, x, spec, cfg), new_cache
 
 
 def _run_layers(params, cache, x: Tensor, cfg: ModelConfig, layer_fn
@@ -91,9 +137,9 @@ def decode_step(params, cache, tokens: Tensor, index, cfg: ModelConfig, *,
     """One decode step. tokens: [B, 1] -> (logits [B, 1, V], new cache).
 
     ``index`` is the 0-based position of the incoming token: a scalar when
-    the whole batch decodes in lockstep, or a [B] vector; SSD layers do not
-    read it (attention, Slice D2, will). ``pages`` (the paged engine's page
-    tables) is Slice E and must be None."""
+    the whole batch decodes in lockstep, or a [B] vector (each row at its
+    own position). ``pages`` (the paged engine's page tables) is Slice E
+    and must be None."""
     if pages is not None:
         raise NotImplementedError("paged decode is not ported yet: ROADMAP "
                                   "Slice E (serving engine)")
@@ -102,9 +148,11 @@ def decode_step(params, cache, tokens: Tensor, index, cfg: ModelConfig, *,
     table = params["embed"]
     x = layers.embed_lookup(table, torch.as_tensor(tokens, device=table.device)
                             ).to(cfg.dtype)
+    if not isinstance(index, int):
+        index = torch.as_tensor(index, device=x.device)
     x, new_caches = _run_layers(
         params, cache, x, cfg,
-        lambda p, c, xx, sp: _decode_layer(p, c, xx, sp, cfg))
+        lambda p, c, xx, sp: _decode_layer(p, c, xx, sp, cfg, index))
     return tfm.logits_from(params, cfg, x), new_caches
 
 
@@ -127,16 +175,50 @@ def _ssd_prefill(p, x: Tensor, cfg: ModelConfig
     return y, {"state": state, "conv_buf": conv_buf}
 
 
-def _prefill_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig
-                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
+def _fill_cache(k: Tensor, t_cache: int, dtype) -> Tensor:
+    """The prompt's K or V [B, S, Kv, hd] as a cache of ``t_cache`` slots:
+    slot i holds position i, the rest zeros."""
+    return torch.nn.functional.pad(
+        k, (0, 0, 0, 0, 0, t_cache - k.shape[1])).to(dtype)
+
+
+def _ring_cache(k: Tensor, t_cache: int, dtype) -> Tensor:
+    """The last ``t_cache`` positions of a prompt longer than the ring, in
+    ring order: position i in slot i mod t_cache."""
+    s = k.shape[1]
+    order = torch.argsort(torch.arange(s - t_cache, s, device=k.device)
+                          % t_cache)
+    return k[:, -t_cache:][:, order].to(dtype)
+
+
+def _prefill_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
+                   positions: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     tfm.check_ported(spec)
     new_cache = dict(cache)
-    if spec.mixer == "ssd":
+    if spec.mixer in ("attn", "swa", "local"):
+        xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+        q, k, v = tfm.qkv(p, xn, cfg)
+        if cfg.rope_theta:
+            q = layers.apply_rope(q, positions, cfg.rope_theta)
+            k = layers.apply_rope(k, positions, cfg.rope_theta)
+        t_cache = cache["k"].shape[1]
+        if spec.mixer in ("swa", "local"):
+            win = cfg.window if spec.mixer == "swa" else cfg.local_window
+            o = attn_lib.windowed_attention(q, k, v, window=win)
+            fill = _fill_cache if k.shape[1] <= t_cache else _ring_cache
+        else:
+            o = attn_lib.chunked_attention(q, k, v, causal=True,
+                                           kv_chunk=cfg.attn_kv_chunk)
+            fill = _fill_cache
+        new_cache["k"] = fill(k, t_cache, cfg.dtype)
+        new_cache["v"] = fill(v, t_cache, cfg.dtype)
+        x = x + tfm.heads_out(o, p["attn"]["wo"], cfg.dtype)
+    elif spec.mixer == "ssd":
         xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
         y, sc = _ssd_prefill(p["ssd"], xn, cfg)
         new_cache.update(sc)
         x = x + y.to(x.dtype)
-    return x, new_cache
+    return tfm.apply_ffn(p, x, spec, cfg), new_cache
 
 
 def prefill(params, cfg: ModelConfig, batch: Mapping, max_len: int,
@@ -148,9 +230,10 @@ def prefill(params, cfg: ModelConfig, batch: Mapping, max_len: int,
         raise tfm.not_ported("family", "encdec")
     x = tfm.embed_inputs(params, cfg, batch)
     cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches = _run_layers(
         params, cache, x, cfg,
-        lambda p, c, xx, sp: _prefill_layer(p, c, xx, sp, cfg))
+        lambda p, c, xx, sp: _prefill_layer(p, c, xx, sp, cfg, positions))
     if last_only:
         x = x[:, -1:]
     return tfm.logits_from(params, cfg, x), new_caches

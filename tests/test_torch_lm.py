@@ -254,22 +254,31 @@ def test_registry_and_shapes_match_jax():
     assert tm2.CONFIG.shapes() == jget("mamba2_1p3b").shapes()
     with pytest.raises(KeyError):
         tconfigs.get_arch("gpt5")
-    for name in ("qwen2_72b", "kan_llm", "recurrentgemma_2b"):
+    for name, slice_ in (("recurrentgemma_2b", "D5"), ("mixtral_8x7b", "D4"),
+                         ("whisper_base", "D6"), ("internvl2_76b", "D6"),
+                         ("kimi_k2_1t_a32b", "D4")):
         with pytest.raises(NotImplementedError, match="ROADMAP Slice D"):
             tconfigs.get_arch(name)
+        with pytest.raises(NotImplementedError, match=slice_):
+            tconfigs.get_arch(name, smoke=True)
+    for name in tconfigs.PORTED:
+        assert tconfigs.get_arch(name).name == jget(name).name
 
 
 def test_unported_layers_name_their_slice():
-    for spec, slice_ in ((ttfm.LayerSpec("attn", "none"), "D2"),
-                         (ttfm.LayerSpec("rglru", "none"), "D5"),
+    for spec, slice_ in ((ttfm.LayerSpec("rglru", "none"), "D5"),
                          (ttfm.LayerSpec("ssd", "moe"), "D4"),
-                         (ttfm.LayerSpec("ssd", "kan"), "D3")):
+                         (ttfm.LayerSpec("attn", "moe"), "D4"),
+                         (ttfm.LayerSpec("attn", "mlp", cross_attn=True),
+                          "D6")):
         cfg = dataclasses.replace(tm2.SMOKE.model, block_pattern=(spec,))
         with pytest.raises(NotImplementedError, match=f"Slice {slice_}"):
             ttfm.init_model(0, cfg, device="cpu")
-    cfg = dataclasses.replace(tm2.SMOKE.model, prescan_cast=True)
-    params = ttfm.init_model(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice F"):
+    cfg = dataclasses.replace(tm2.SMOKE.model, family="encdec")
+    with pytest.raises(NotImplementedError, match="Slice D6"):
+        ttfm.init_model(0, cfg, device="cpu")
+    params = ttfm.init_model(0, tm2.SMOKE.model, device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice D6"):
         ttfm.forward(params, cfg, {"tokens": torch.zeros((1, 4),
                                                          dtype=torch.long)})
 
