@@ -540,7 +540,9 @@ def deploy(params, spec: KANSpec, stats=None, *, chip_uid: int = 0
     for i in range(spec.n_layers):
         lp = _layer_params(params, spec, i)
         lspec = spec.layer(i)
-        coeffs = lp["coeffs"].to(torch.float32)
+        # contiguous: the kernels take the codes in place (a refit's
+        # einsum, for one, returns a permuted view)
+        coeffs = lp["coeffs"].to(torch.float32).contiguous()
         codes, scale = quant.quantize_coeffs(coeffs, lspec.asp, axis=(0, 1))
         hemi = quant.hemi_for(lspec.asp, coeffs.device)
         extras = backend.deploy_extras(codes, scale, lspec, spec,

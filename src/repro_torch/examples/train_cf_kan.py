@@ -2,7 +2,8 @@
 RRAM-ACIM hardware, the paper's §4 pipeline (port of
 ``examples/train_cf_kan.py``, with the same flags and defaults).
 
-    PYTHONPATH=src python -m repro_torch.examples.train_cf_kan [--steps 300]
+    PYTHONPATH=src python -m repro_torch.examples.train_cf_kan \
+        [--steps 300] [--device cpu]
 
 Steps: synthetic Anime-like interactions -> QAT training with plain SGD
 (``train``) -> Recall@20/NDCG@20 float vs ASP-quantised (``evaluate``) ->
@@ -10,11 +11,9 @@ CIM simulation with uniform vs KAN-SAM mapping across array sizes, the
 Fig. 18 protocol, and the Fig. 19 cost-model readout (``fig18``). The
 functions run where the params lie. The backend is ``CFKANConfig.backend``.
 
-The command line is the one exception to the package's rule that entry
-points need the card unless told ``device="cpu"``: it takes the JAX
-example's flags and no other, so it runs on the card when there is one and
-on the CPU otherwise (as the JAX example runs on JAX's default device), and
-says which in its first line.
+The command line takes the JAX example's flags and ``--device``: without
+it ``main`` runs on the card and raises if there is none, as every entry
+point of the package does; ``--device cpu`` runs it on the CPU.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import kan
 from repro_torch.core.quant import ASPConfig
 from repro_torch.data import cf_synth
@@ -147,13 +147,15 @@ def main(argv=None) -> None:
     ap.add_argument("--grid", type=int, default=7)
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--lr", type=float, default=2e-2)
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card; 'cpu' runs on the CPU")
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)
 
     cfg = cf_kan.CFKANConfig(
         n_items=args.items, hidden=args.hidden,
         asp_enc=ASPConfig(grid_size=args.grid),
         asp_dec=ASPConfig(grid_size=args.grid), name="cf-kan-demo")
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     print(f"CF-KAN: {cfg.n_items} items, hidden {cfg.hidden}, G={args.grid} "
           f"-> {cfg.n_params/1e6:.2f}M params, backend {cfg.backend}, on "
           f"{device}")

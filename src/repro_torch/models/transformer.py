@@ -2,8 +2,9 @@
 stage grouping, init, forward, parameter counting and ``deploy_kan``, for
 decoder-only models whose layers mix with ``attn`` (full causal GQA),
 ``swa`` (sliding window), ``local`` (Griffin local attention), ``bidir``
-(bidirectional) or ``ssd`` and whose FFN is ``mlp``, ``kan`` (the paper's
-ASP-KAN-HAQ KAN-FFN through ``core.kan``) or none.
+(bidirectional), ``ssd`` or ``rglru`` (Griffin's RG-LRU) and whose FFN is
+``mlp``, ``kan`` (the paper's ASP-KAN-HAQ KAN-FFN through ``core.kan``) or
+none.
 
 The parameter tree keeps the JAX layout, so weights carry across leaf by
 leaf (``params_from_numpy``): ``{"embed", "final_norm": {"scale"},
@@ -30,6 +31,7 @@ from repro_torch.core.kan import params_from_numpy  # noqa: F401 (the LM's)
 from repro_torch.core.quant import ASPConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 
 Tensor = torch.Tensor
@@ -40,7 +42,6 @@ ATTN_MIXERS = ("attn", "swa", "local", "bidir")
 LATER = {
     "cross_attn": "Slice D6 (the other configs: cross attention, whisper)",
     "moe": "Slice D4 (MoE)",
-    "rglru": "Slice D5 (RG-LRU)",
     "encdec": "Slice D6 (the other configs: cross attention, whisper)",
     "frontend": "Slice D6 (the other configs)",
 }
@@ -53,9 +54,9 @@ def not_ported(what: str, name: str) -> NotImplementedError:
 
 def check_ported(spec: "LayerSpec") -> None:
     """Raise for a layer with parts of a later slice: ported are the
-    attention and ``ssd`` mixers (or none) and the ``mlp`` and ``kan``
-    FFNs (or none), without cross attention."""
-    if spec.mixer not in ATTN_MIXERS + ("ssd", "none"):
+    attention, ``ssd`` and ``rglru`` mixers (or none) and the ``mlp`` and
+    ``kan`` FFNs (or none), without cross attention."""
+    if spec.mixer not in ATTN_MIXERS + ("ssd", "rglru", "none"):
         raise not_ported("mixer", spec.mixer)
     if spec.cross_attn:
         raise not_ported("layer part", "cross_attn")
@@ -160,6 +161,12 @@ class ModelConfig:
         return ssd_lib.SSDConfig(
             d_model=self.d_model, d_state=self.ssm_state,
             head_dim=self.ssm_head_dim, chunk=self.ssm_chunk,
+            dtype=self.param_dtype)
+
+    @property
+    def rglru_cfg(self) -> rglru_lib.RGLRUConfig:
+        return rglru_lib.RGLRUConfig(
+            d_model=self.d_model, d_rnn=self.rnn_width or self.d_model,
             dtype=self.param_dtype)
 
     def layer_specs(self, n_layers: Optional[int] = None) -> List[LayerSpec]:
@@ -341,6 +348,9 @@ def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device) -> Dict:
     elif spec.mixer == "ssd":
         p["mixer_norm"] = norm(cfg.d_model, device)
         p["ssd"] = ssd_lib.init_ssd_block(gen, cfg.ssd_cfg, device)
+    elif spec.mixer == "rglru":
+        p["mixer_norm"] = norm(cfg.d_model, device)
+        p["rglru"] = rglru_lib.init_rglru_block(gen, cfg.rglru_cfg, device)
     if spec.ffn == "mlp":
         p["ffn_norm"] = norm(cfg.d_model, device)
         p["mlp"] = _init_mlp(gen, cfg, device)
@@ -485,6 +495,10 @@ def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
         # the block returns f32; the residual add is in the compute dtype
         x = x + ssd_lib.apply_ssd_block(p["ssd"], xn, cfg.ssd_cfg
                                         ).to(x.dtype)
+    elif spec.mixer == "rglru":
+        xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+        x = x + rglru_lib.apply_rglru_block(p["rglru"], xn, cfg.rglru_cfg
+                                            ).to(x.dtype)
     return apply_ffn(p, x, spec, cfg)
 
 

@@ -11,7 +11,9 @@ Cache layouts per layer (stacked [repeats, ...] inside a repeated stage):
                 conv's ring buffer [B, K-1, di+2N] in the compute dtype. The
                 prefill's scan runs the ``ssd_scan`` kernel on the card
                 (``models.ssd.ssd_chunked``), which also gives the final
-                state the cache keeps.
+                state the cache keeps;
+  rglru       — the hidden state [B, dr] f32 and the conv buffer [B, K-1,
+                dr] of pre-conv inputs in the compute dtype.
 A ``bidir`` mixer has no cache and, as in the reference, prefill and decode
 skip it (it serves an encoder, which is Slice D6).
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models import layers
@@ -54,6 +57,9 @@ def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
     if spec.mixer == "ssd":
         return ssd_lib.init_ssd_cache(batch, cfg.ssd_cfg, cfg.dtype, device)
+    if spec.mixer == "rglru":
+        return rglru_lib.init_rglru_cache(batch, cfg.rglru_cfg, cfg.dtype,
+                                          device)
     return {}
 
 
@@ -85,8 +91,8 @@ def _decode_positions(index, device):
 def _decode_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
                   index) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: [B, 1, D]; index: the 0-based position of the decoded token, a
-    scalar or a [B] vector. An SSD layer does not read it: its state
-    carries the position."""
+    scalar or a [B] vector. SSD and RG-LRU layers do not read it: their
+    state carries the position."""
     tfm.check_ported(spec)
     new_cache = dict(cache)
     if spec.mixer in ("attn", "swa", "local"):
@@ -108,6 +114,13 @@ def _decode_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
             p["ssd"], xn, {"state": cache["state"],
                            "conv_buf": cache["conv_buf"]}, cfg.ssd_cfg)
         new_cache.update(sc)
+        x = x + y.to(x.dtype)
+    elif spec.mixer == "rglru":
+        xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+        y, rc = rglru_lib.apply_rglru_block_decode(
+            p["rglru"], xn, {"h": cache["h"],
+                             "conv_buf": cache["conv_buf"]}, cfg.rglru_cfg)
+        new_cache.update(rc)
         x = x + y.to(x.dtype)
     return tfm.apply_ffn(p, x, spec, cfg), new_cache
 
@@ -175,6 +188,21 @@ def _ssd_prefill(p, x: Tensor, cfg: ModelConfig
     return y, {"state": state, "conv_buf": conv_buf}
 
 
+def _rglru_prefill(p, x: Tensor, cfg: ModelConfig
+                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Like ``apply_rglru_block`` but also returns the cache: the last
+    hidden state (f32) and the last K-1 conv inputs (before the conv,
+    rounded to the compute dtype)."""
+    rcfg = cfg.rglru_cfg
+    gate = layers.gelu(layers.matmul(x, p["w_gate"]))
+    main = layers.matmul(x, p["w_main"])
+    conv_buf = main[:, -(rcfg.conv_width - 1):].to(cfg.dtype)
+    main = ssd_lib._causal_conv(main, p["conv"])
+    h = rglru_lib.rglru_scan(p, main)
+    y = layers.matmul(h.to(x.dtype) * gate, p["w_out"])
+    return y, {"h": h[:, -1], "conv_buf": conv_buf}
+
+
 def _fill_cache(k: Tensor, t_cache: int, dtype) -> Tensor:
     """The prompt's K or V [B, S, Kv, hd] as a cache of ``t_cache`` slots:
     slot i holds position i, the rest zeros."""
@@ -217,6 +245,11 @@ def _prefill_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
         xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
         y, sc = _ssd_prefill(p["ssd"], xn, cfg)
         new_cache.update(sc)
+        x = x + y.to(x.dtype)
+    elif spec.mixer == "rglru":
+        xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+        y, rc = _rglru_prefill(p["rglru"], xn, cfg)
+        new_cache.update(rc)
         x = x + y.to(x.dtype)
     return tfm.apply_ffn(p, x, spec, cfg), new_cache
 

@@ -254,7 +254,7 @@ def test_registry_and_shapes_match_jax():
     assert tm2.CONFIG.shapes() == jget("mamba2_1p3b").shapes()
     with pytest.raises(KeyError):
         tconfigs.get_arch("gpt5")
-    for name, slice_ in (("recurrentgemma_2b", "D5"), ("mixtral_8x7b", "D4"),
+    for name, slice_ in (("mixtral_8x7b", "D4"),
                          ("whisper_base", "D6"), ("internvl2_76b", "D6"),
                          ("kimi_k2_1t_a32b", "D4")):
         with pytest.raises(NotImplementedError, match="ROADMAP Slice D"):
@@ -266,7 +266,7 @@ def test_registry_and_shapes_match_jax():
 
 
 def test_unported_layers_name_their_slice():
-    for spec, slice_ in ((ttfm.LayerSpec("rglru", "none"), "D5"),
+    for spec, slice_ in ((ttfm.LayerSpec("rglru", "moe"), "D4"),
                          (ttfm.LayerSpec("ssd", "moe"), "D4"),
                          (ttfm.LayerSpec("attn", "moe"), "D4"),
                          (ttfm.LayerSpec("attn", "mlp", cross_attn=True),

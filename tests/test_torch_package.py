@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import cf_kan_1  # noqa: E402
 from repro_torch.core import kan, kan_sam  # noqa: E402
+from repro_torch.examples import kan_neurosim_search  # noqa: E402
+from repro_torch.examples import quickstart, train_cf_kan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import mamba2_1p3b  # noqa: E402
 from repro_torch.models import cf_kan  # noqa: E402
@@ -80,6 +82,11 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         transformer.params_from_numpy({"stages": [{"embed": np.zeros(2)}]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode.init_cache(lm, 1, 8)
+    # the command lines: the card unless given --device cpu
+    for main in (train_cf_kan.main, kan_neurosim_search.main,
+                 quickstart.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([])
     params = kan.init(0, spec, device="cpu")
     assert params["coeffs"].device.type == "cpu"
     lm_params = transformer.init_model(0, lm, device="cpu")
@@ -88,6 +95,24 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     out = decode.generate(lm_params, lm, torch.zeros((1, 4), dtype=torch.long),
                           n_new=2)
     assert out.shape == (1, 2) and out.device.type == "cpu"
+
+
+TINY_TRAIN = ["--items", "64", "--users", "128", "--hidden", "8", "--steps",
+              "2", "--device", "cpu"]
+
+
+def test_example_twins_run_end_to_end_on_the_cpu(capsys):
+    """``--device cpu`` runs each example twin to its end: the training
+    twin at a tiny size, the tuner twin and the quickstart at their own."""
+    train_cf_kan.main(TINY_TRAIN)
+    assert "Fig.19 cost model" in capsys.readouterr().out
+    res = kan_neurosim_search.main(["--device", "cpu"])
+    assert len(res.evaluated) == 16 and len(res.frontier) >= 1
+    assert res.baseline.meta["origin"] == "baseline"
+    assert "Pareto frontier" in capsys.readouterr().out
+    out = quickstart.main(["--device", "cpu"])
+    assert out["lut_vs_fused"] <= 1e-5 and out["err_sam"] < out["err_uniform"]
+    assert capsys.readouterr().out.rstrip().endswith("OK")
 
 
 def test_library_name_follows_the_headers(monkeypatch, tmp_path):
