@@ -1,7 +1,8 @@
 """Serve CF-KAN-1, mamba2-1.3b, the KAN-FFN LLM, mistral-nemo-12b and
 recurrentgemma-2b, train CF-KAN-1 and search its per-layer operating points
-at full width on one CUDA card through the port's hand-written kernels, and
-hold every kernel against its plain version.
+at full width on one CUDA card through the port's hand-written kernels,
+serve the KAN-FFN LLM and mamba2-1.3b through the continuous-batching
+engine, and hold every kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -195,6 +196,45 @@ Phases (any failed check raises, and the script exits non-zero):
    seq_len=2048, seed=0)``, as long as the window, so every decode step
    writes over the ring): phase 8's path, checks and f32 control, and a
    profiler breakdown of one prefill and three decode steps.
+13. The continuous-batching engine (``serve.engine.Engine``: paged KV
+   pool, chunked prefill, admission queue, an ``EngineRecorder``), each
+   run launch-counted, with the launch counts zeroed just before ``run``
+   and read just after. (a) ``kan_llm`` ``CONFIG`` (seeded CUDA
+   generator) on ``fused``, then ``lut``: 16 slots, pages of 64 (chunks of
+   64), max_len 704, 64 requests from ``synth_trace(4096, 64,
+   min_prompt=128, max_prompt=512, common_prefix=128, min_new=16,
+   max_new=64, stagger=1, seed=0)`` (the prefix comes before prompts of
+   128..512, so prompts reach 640 tokens and max_len is 640 + 64 rounded
+   up to whole pages). The run is inside ``quantisation_poisoned()``;
+   every request completes its budget, some slot serves more than one,
+   some page reaches refcount 2 and the prefix cache hits; ``fused``
+   launches ``kan_fused`` exactly 8 times per fused tick and per chunk;
+   on ``fused`` each request's tokens are its solo run's
+   (``decode.prefill`` then ``decode_step``, batch 1, on the card, fed
+   the engine's tokens) at every step whose solo top-1 logit leads its
+   top-2 by more than ``F32_PATH_BAR`` (phase 8's rule: so up to the
+   first near tie, and at each clear step after it), and ``fused``'s equal
+   ``lut``'s up to ``lut``'s first lead under it (phase 10a's rule; the
+   leads from a teacher-forced ``forward``). ``kan_fused`` is held as
+   in phase 3 on layer 0's inputs captured from the run at the tick's 16
+   rows and a chunk's 64, up and down. The example twin runs once on its
+   own trace. (b) mamba2-1.3b ``CONFIG``, all 48 layers: 8 slots, pages
+   of 64 (chunks of 256), max_len 2112, 16 requests from
+   ``synth_trace(50280, 16, min_prompt=512, max_prompt=2048, min_new=16,
+   max_new=32, stagger=1, seed=0)``; every request completes; ``ssd_scan``
+   is launched 48 times per chunk, of which exactly 48 x (sum over
+   requests of (chunks - 1)) with ``init_state``; each request's carried
+   state after its last chunk, and its tokens at the clear steps, against
+   a solo whole-prompt prefill and its decode steps, at twice the reach of
+   bf16 rounding (solo bf16 against solo f32: two bf16 paths to one f32
+   result); ``check_ssd_scan`` on the first carried-state
+   scan's inputs ([1, 256, 64, 64], N 128). Per run it prints ticks,
+   tokens/s, TTFT and TPOT p50/p99 (host clock: a non-final chunk does not
+   synchronise), mean occupancy, peak pages, prefix-hit pages, the bytes a
+   fused tick moves (from the shapes), and from ``torch.profiler`` traces
+   on a fresh engine the device's time per tick and its idle share over 6
+   ticks (after 10 unprofiled), and its time per fused tick and per chunk
+   (one call of each from that window, repeated 5 times).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -204,6 +244,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -223,16 +264,19 @@ from repro_torch.configs import recurrentgemma_2b  # noqa: E402
 from repro_torch.core import kan, kan_sam, quant, splines  # noqa: E402
 from repro_torch.data import cf_synth, lm_synth  # noqa: E402
 from repro_torch.examples import kan_neurosim_search  # noqa: E402
-from repro_torch.examples import train_cf_kan  # noqa: E402
+from repro_torch.examples import serve_kan_llm, train_cf_kan  # noqa: E402
 from repro_torch.hw import chip, cim, tiles, variation  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import cim_mac as cim_kernels  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_kernels  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import cf_kan, layers  # noqa: E402
 from repro_torch.models import rglru as rglru_lib  # noqa: E402
 from repro_torch.models import ssd as ssd_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.obs import EngineRecorder  # noqa: E402
 from repro_torch.serve import decode  # noqa: E402
+from repro_torch.serve.engine import Engine, synth_trace  # noqa: E402
 from repro_torch.tune import space  # noqa: E402
 
 PEAK_F32 = 67e12          # FLOP/s, H100 SXM, outside the tensor cores
@@ -297,6 +341,18 @@ TUNE_GRIDS = (2, 4, 7, 8, 16, 32, 64)
 ACC_LOSS_BUDGET = 0.005   # bench_pareto's dominance criterion
 # phase 12: recurrentgemma-2b at full width and depth
 RGEMMA_PARAMS = 2_894_528_000
+# phase 13: the continuous-batching engine at full width. kan_llm: 16
+# slots, pages of 64; synth_trace puts the 128-token common prefix before
+# prompts of 128..512, so prompts reach 640 tokens and a request 640 + 64 -
+# 1 = 703 cached tokens: max_len 704 (11 pages). mamba2-1.3b: 8 slots,
+# pages of 64, chunks of lcm(64, 256) = 256.
+ENGINE_KAN = dict(n_slots=16, page_size=64, max_len=704)
+ENGINE_KAN_TRACE = dict(n_requests=64, min_prompt=128, max_prompt=512,
+                        common_prefix=128, min_new=16, max_new=64, stagger=1,
+                        seed=0)
+ENGINE_MAMBA = dict(n_slots=8, page_size=64, max_len=2112)
+ENGINE_MAMBA_TRACE = dict(n_requests=16, min_prompt=512, max_prompt=2048,
+                          min_new=16, max_new=32, stagger=1, seed=0)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2029,6 +2085,435 @@ def rgemma_phase(dev):
     return metrics
 
 
+# --- phase 13: the continuous-batching engine at full width -----------------
+
+def tick_bytes(eng):
+    """Bytes one fused decode tick moves through the engine's cache and
+    weights, counted from the shapes: per full-attention layer, the K and V
+    gathers through every slot's page table read and write n_slots x P
+    pages each and attention reads the gathered rows again (3 passes);
+    per recurrent layer, the step reads the state and writes a new one,
+    and the masked write reads both and writes the rows back (5 passes);
+    every weight read once. The one-token writes are left out."""
+    cache = 0
+    for blk, stage in zip(eng.cache, eng.stages):
+        for i, sp in enumerate(stage.block):
+            for leaf in blk[f"l{i}"].values():
+                if sp.mixer == "attn":    # K or V [(layers,) pages, ...]
+                    page = leaf.element_size() * leaf.numel() // leaf.shape[-4]
+                    cache += 3 * page * eng.n_slots * eng.n_slot_pages
+                else:
+                    cache += 5 * leaf.element_size() * leaf.numel()
+    weights = sum(t.element_size() * t.numel()
+                  for t in tfm.tree_leaves(eng.params))
+    return cache, weights
+
+
+@contextlib.contextmanager
+def engine_spies(eng, seen, on_chunk=None):
+    """While active: ``seen["decode"]`` and ``seen["chunks"]`` count the
+    engine's fused ticks and prefill chunks, ``seen["peak_ref"]`` holds the
+    largest page refcount after any tick; ``on_chunk(slot, last, cache)``
+    runs after each chunk."""
+    decode_fn, step_fn, chunk_fn = eng._decode, eng.step, decode.prefill_chunk
+    seen.update(decode=0, chunks=0, peak_ref=0)
+
+    def counted_decode(*args):
+        seen["decode"] += 1
+        return decode_fn(*args)
+
+    def tracked_step():
+        out = step_fn()
+        seen["peak_ref"] = max(seen["peak_ref"],
+                               int(eng.alloc.refcount.max()))
+        return out
+
+    def counted_chunk(params, cfg, cache, tokens, start, slot, pages_row,
+                      **kw):
+        seen["chunks"] += 1
+        out = chunk_fn(params, cfg, cache, tokens, start, slot, pages_row,
+                       **kw)
+        if on_chunk is not None:
+            on_chunk(slot, kw["last"], out[1])
+        return out
+    eng._decode, eng.step, decode.prefill_chunk = (counted_decode,
+                                                   tracked_step,
+                                                   counted_chunk)
+    try:
+        yield
+    finally:
+        eng._decode, eng.step = decode_fn, step_fn
+        decode.prefill_chunk = chunk_fn
+
+
+def engine_profile(params, cfg, trace, eng_kw, warm=10, n_ticks=6, reps=5):
+    """Device time of the engine from ``torch.profiler`` traces, on a fresh
+    engine fed ``trace``: over ``n_ticks`` ticks after ``warm`` unprofiled
+    ones, the device's busy time per tick (every kernel and copy) and its
+    idle share of the window's host time (ending in a synchronize); then
+    the first fused tick's and the first full non-first chunk's calls of
+    those ticks repeated ``reps`` times each on the engine's cache (the
+    engine is dropped after), for the device time per fused tick and per
+    chunk.
+    Empty where a trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(prof):
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
+
+    eng = Engine(params, cfg, **eng_kw)
+    for r in trace:
+        eng.submit(r)
+    calls, saved = {}, (decode.decode_step, decode.prefill_chunk)
+
+    def kept(name, fn, keep):
+        def wrapped(*args, **kwargs):
+            if name not in calls and keep(args, kwargs):
+                calls[name] = (args, kwargs)
+            return fn(*args, **kwargs)
+        return wrapped
+    decode.decode_step = kept("decode_tick", saved[0], lambda a, k: True)
+    decode.prefill_chunk = kept(
+        "prefill_chunk", saved[1], lambda a, k: not k["first"]
+        and a[3].shape[1] == eng.chunk_tokens)
+    try:
+        for _ in range(warm):
+            eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        decode.decode_step, decode.prefill_chunk = saved
+    busy = device_ms(prof)
+    if not busy:
+        return {}
+    out = dict(ticks=n_ticks, device_ms_per_tick=busy / n_ticks,
+               wall_ms_per_tick=wall_ms / n_ticks,
+               idle_share=1 - busy / wall_ms)
+    for name, fn in (("decode_tick", saved[0]), ("prefill_chunk", saved[1])):
+        if name not in calls:
+            out[f"device_ms_per_{name}"] = None
+            continue
+        args, kwargs = calls[name]
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            out[f"wall_ms_per_{name}"] = 1e3 * (time.perf_counter()
+                                                - t0) / reps
+        out[f"device_ms_per_{name}"] = device_ms(prof) / reps
+    return out
+
+
+def print_engine(label, rep, prof, launches, extra=""):
+    print(f"{label}: {rep['completed']} requests, {rep['ticks']} ticks, "
+          f"{rep['tokens_per_s']} tokens/s, TTFT p50/p99 "
+          f"{rep['ttft_s']['p50']}/{rep['ttft_s']['p99']} s, TPOT p50/p99 "
+          f"{rep['tpot_s']['p50']}/{rep['tpot_s']['p99']} s, mean occupancy "
+          f"{rep['mean_occupancy']}, slot reuse {rep['slot_reuse']}, peak "
+          f"pages {rep['pages_in_use_peak']} of {rep['n_pages']}, prefix-hit "
+          f"pages {rep['prefix_hit_pages']} of {rep['prefix_eligible_pages']}"
+          f", chunks {rep['prefill_chunks']}; launches {launches}{extra}")
+    if not prof:
+        print(f"{label} profile: not measured (no device times in the "
+              "trace)")
+        return
+    calls = "; ".join(
+        f"{name}: device {prof[f'device_ms_per_{name}']:.4f} ms, host "
+        f"{prof[f'wall_ms_per_{name}']:.4f} (synchronized)"
+        if prof[f"device_ms_per_{name}"] is not None else f"{name}: none"
+        for name in ("decode_tick", "prefill_chunk"))
+    print(f"{label} profile ({prof['ticks']} ticks): device "
+          f"{prof['device_ms_per_tick']:.4f} ms a tick of "
+          f"{prof['wall_ms_per_tick']:.4f} (idle {prof['idle_share']:.3f}); "
+          f"per call, repeated: {calls}")
+
+
+def solo_forced(params, cfg, prompt, toks):
+    """The request alone (batch 1) through ``decode.prefill`` and
+    ``decode_step`` on the card, fed the engine's tokens ``toks``: per
+    step the solo argmax and its top-1 lead over top-2; the prefill's last
+    logits (f32) and its cache."""
+    logits, cache = decode.prefill(params, cfg, {"tokens": prompt[None]},
+                                   len(prompt) + len(toks), last_only=True)
+    steps, first_cache = [logits[0, -1].float()], cache
+    for i in range(len(toks) - 1):
+        out, cache = decode.decode_step(
+            params, cache, torch.tensor([[toks[i]]], device=prompt.device),
+            len(prompt) + i, cfg)
+        steps.append(out[0, 0].float())
+    top2 = torch.topk(torch.stack(steps), 2, dim=-1).values
+    leads = (top2[:, 0] - top2[:, 1]).tolist()
+    argmax = torch.argmax(torch.stack(steps), dim=-1).tolist()
+    return argmax, leads, steps[0], first_cache
+
+
+def solo_agrees(label, rid, toks, argmax, leads, bar):
+    """The engine's token at every step where the solo run's top-1 lead is
+    over ``bar`` is the solo argmax (phase 8's rule, teacher-forced): then
+    the two runs agree up to the first near tie, and at every clear step
+    after it. Returns the steps compared."""
+    clear = [i for i, lead in enumerate(leads) if lead > bar]
+    bad = [i for i in clear if argmax[i] != toks[i]]
+    check(not bad, f"{label}: request {rid} differs from its solo run at "
+          f"clear steps {bad[:5]} (bar {bar:.3g})")
+    return len(clear)
+
+
+def until_tie(leads, bar):
+    """The first step whose top-1 lead is within ``bar`` (or the length)."""
+    return next((i for i, lead in enumerate(leads) if lead <= bar),
+                len(leads))
+
+
+def engine_kan_llm_phase(timer, dev):
+    """Phase 13a. Returns the metrics, the ``kan_fused`` rows at the
+    engine's tick and chunk shapes and the ``kan_fused`` launches of the
+    fused run."""
+    base = kan_llm.CONFIG.model
+    params = tfm.init_model(0, base)
+    trace = lambda: synth_trace(base.vocab, **ENGINE_KAN_TRACE)  # noqa: E731
+    reqs = trace()
+    eng_kw = dict(ENGINE_KAN, device=dev)
+    asp_up, asp_down = base.kan_spec.asp
+    out, toks_by, rows, leads_lut = {}, {}, [], {}
+    launches_fused = 0
+    for backend in ("fused", "lut"):
+        cfg = dataclasses.replace(base, kan_backend=backend)
+        eng = Engine(params, cfg, recorder=EngineRecorder(), **eng_kw)
+        check(eng.share_ok and eng.chunk_tokens == ENGINE_KAN["page_size"],
+              f"kan_llm engine: share_ok {eng.share_ok}, chunk "
+              f"{eng.chunk_tokens}")
+        # layer 0's artifact as the engine deployed it, and the first input
+        # it hands kan_fused at the tick's rows and at a chunk's
+        up, down = tfm.layer_of(eng.params["stages"][0], 0)["l0"][
+            "kan"].layers
+        seen, captured = {}, {}
+        codes_of = {up.codes.data_ptr(): "up", down.codes.data_ptr(): "down"}
+        fused_fn = ops.kan_spline_fused_deployed
+
+        def spy(x, codes, scale, asp, hemi=None):
+            name = codes_of.get(codes.data_ptr())
+            x2 = x.reshape(-1, x.shape[-1])
+            key = (x2.shape[0], x2.shape[1])
+            if (name and key[0] in (ENGINE_KAN["n_slots"],
+                                    ENGINE_KAN["page_size"])
+                    and key not in captured):
+                captured[key] = (name, x2.clone())
+            return fused_fn(x, codes, scale, asp, hemi=hemi)
+        if backend == "fused":
+            ops.kan_spline_fused_deployed = spy
+        try:
+            with quantisation_poisoned(), engine_spies(eng, seen):
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                comps = eng.run(trace())
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                launches = ops.launch_counts()
+        finally:
+            ops.kan_spline_fused_deployed = fused_fn
+        rep = eng.stats.report()
+        per_call = 2 * base.n_layers      # up and down in every KAN-FFN
+        expected = ({"kan_fused": per_call * (seen["decode"]
+                                              + seen["chunks"])}
+                    if backend == "fused" else {})
+        check_launches(f"kan_llm engine {backend}", launches, expected)
+        if backend == "fused":
+            launches_fused = launches["kan_fused"]
+        check(len(comps) == len(reqs) == rep["completed"],
+              f"kan_llm engine {backend}: {len(comps)} of {len(reqs)} done")
+        got = {c.rid: [int(t) for t in c.tokens] for c in comps}
+        check(all(len(got[r.rid]) == r.max_new for r in reqs),
+              f"kan_llm engine {backend}: a request stopped short")
+        check(rep["slot_reuse"] > 1, f"kan_llm engine {backend}: no slot "
+              "reuse")
+        check(seen["peak_ref"] > 1 and rep["prefix_hit_pages"] > 0,
+              f"kan_llm engine {backend}: no page shared (peak refcount "
+              f"{seen['peak_ref']}, prefix hits {rep['prefix_hit_pages']})")
+        check(seen["chunks"] == rep["prefill_chunks"],
+              f"kan_llm engine {backend}: chunks counted twice differently")
+        compared = 0
+        with quantisation_poisoned():
+            for r in reqs:
+                prompt = torch.from_numpy(r.tokens.astype(np.int64)).to(dev)
+                if backend == "fused":
+                    # each request alone, on the card
+                    argmax, leads, _, _ = solo_forced(eng.params, cfg,
+                                                      prompt, got[r.rid])
+                    compared += solo_agrees(f"kan_llm engine {backend}",
+                                            r.rid, got[r.rid], argmax, leads,
+                                            F32_PATH_BAR)
+                else:
+                    # lut's leads along its own tokens, for phase 10a's
+                    # rule below (one teacher-forced forward a request)
+                    full = torch.cat([prompt, torch.tensor(
+                        got[r.rid][:-1], device=dev)])[None]
+                    lf, _ = tfm.forward(eng.params, cfg, {"tokens": full})
+                    top2 = torch.topk(lf[0, len(prompt) - 1:].float(), 2,
+                                      dim=-1).values
+                    leads_lut[r.rid] = (top2[:, 0] - top2[:, 1]).tolist()
+        prof = engine_profile(eng.params, cfg, trace(), eng_kw)
+        cache_b, weight_b = tick_bytes(eng)
+        out[backend] = dict(report=rep, run_s=run_s, launches=launches,
+                            decode_calls=seen["decode"],
+                            chunk_calls=seen["chunks"],
+                            peak_refcount=seen["peak_ref"],
+                            solo_clear_steps_compared=compared, profile=prof,
+                            tick_cache_bytes=cache_b,
+                            tick_weight_bytes=weight_b)
+        toks_by[backend] = got
+        solo_note = (f", clear solo steps compared {compared}"
+                     if backend == "fused" else "")
+        print_engine(f"phase 13a kan_llm engine {backend}", rep, prof,
+                     launches, f"; run {run_s:.3f} s{solo_note}, peak "
+                     f"refcount {seen['peak_ref']}, a tick "
+                     f"moves {cache_b / 1e6:.1f} MB of cache and "
+                     f"{weight_b / 1e6:.1f} MB of weights")
+        if backend == "fused":
+            for (rows_n, i), (name, x) in sorted(captured.items()):
+                layer = up if name == "up" else down
+                what = "tick" if rows_n == ENGINE_KAN["n_slots"] else "chunk"
+                rows.append(check_kan_fused(
+                    timer, f"kan_llm engine {what} {name} [{rows_n}, {i}]",
+                    x, layer, asp_up if name == "up" else asp_down))
+                rows[-1]["on_path"] = False
+            check(len(rows) == 4, f"kan_llm engine: kan_fused captured at "
+                  f"{sorted(captured)}, not the tick's and chunk's shapes")
+    # fused against lut, each request up to lut's first near tie
+    got_f, got_l = toks_by["fused"], toks_by["lut"]
+    compared = 0
+    for r in reqs:
+        cut = until_tie(leads_lut[r.rid], F32_PATH_BAR)
+        check(got_f[r.rid][:cut] == got_l[r.rid][:cut],
+              f"kan_llm engine: fused and lut differ for request {r.rid} "
+              f"before lut's first near tie at step {cut}")
+        compared += cut
+    out["fused_vs_lut_steps_compared"] = compared
+    t0 = time.perf_counter()
+    ex = serve_kan_llm.main([])
+    torch.cuda.synchronize()
+    out["example"] = dict(report=ex, s=time.perf_counter() - t0)
+    print(f"phase 13a fused vs lut: tokens equal through {compared} steps "
+          f"(lut's first lead under {F32_PATH_BAR}); example twin: "
+          f"{ex['completed']} requests in {out['example']['s']:.2f}"
+          f" s")
+    return out, rows, launches_fused
+
+
+def engine_mamba2_phase(timer, dev):
+    """Phase 13b. Returns the metrics, the ``ssd_scan`` row at the chunk's
+    shape and the ``ssd_scan`` launches of the engine's run."""
+    cfg = mamba2_1p3b.CONFIG.model
+    params = tfm.init_model(0, cfg)
+    trace = lambda: synth_trace(cfg.vocab, **ENGINE_MAMBA_TRACE)  # noqa
+    reqs = trace()
+    eng_kw = dict(ENGINE_MAMBA, device=dev)
+    eng = Engine(params, cfg, recorder=EngineRecorder(), **eng_kw)
+    chunk = eng.chunk_tokens
+    check(chunk == math.lcm(ENGINE_MAMBA["page_size"], cfg.ssm_chunk)
+          and not eng.share_ok, f"mamba2 engine: chunk {chunk}, share_ok "
+          f"{eng.share_ok}")
+    seen, states, scan_in = {}, {}, {}
+
+    def on_chunk(slot, last, cache):
+        if last:      # the slot's carried state, before its first tick
+            states[eng.slot_req[slot].rid] = cache[0]["l0"]["state"][
+                :, slot].clone()
+    ssd_fn = ops.ssd_state
+
+    def spy(x, dt, a, b_mat, c_mat, d_skip=None, *, chunk, init_state=None):
+        if init_state is not None and not scan_in:
+            scan_in.update({k: v.clone() for k, v in dict(
+                x=x, dt=dt, a=a, B=b_mat, C=c_mat, d_skip=d_skip,
+                init=init_state).items()})
+        return ssd_fn(x, dt, a, b_mat, c_mat, d_skip, chunk=chunk,
+                      init_state=init_state)
+    ops.ssd_state = spy
+    try:
+        with engine_spies(eng, seen, on_chunk):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            comps = eng.run(trace())
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            init_launches = ssd_kernels.ssd_scan.init_launches
+    finally:
+        ops.ssd_state = ssd_fn
+    rep = eng.stats.report()
+    n_chunks = [-(-len(r.tokens) // chunk) for r in reqs]
+    check_launches("mamba2 engine", launches,
+                   {"ssd_scan": sum(n_chunks) * cfg.n_layers})
+    want_init = sum(c - 1 for c in n_chunks) * cfg.n_layers
+    check(init_launches == want_init, f"mamba2 engine: ssd_scan launched "
+          f"{init_launches} times with init_state, not {want_init}")
+    check(len(comps) == len(reqs) == rep["completed"], f"mamba2 engine: "
+          f"{len(comps)} of {len(reqs)} completed")
+    got = {c.rid: [int(t) for t in c.tokens] for c in comps}
+    check(all(len(got[r.rid]) == r.max_new for r in reqs),
+          "mamba2 engine: a request stopped short")
+    check(len(states) == len(reqs), "mamba2 engine: a carried state was not "
+          "captured")
+    # each request alone: its carried state against a solo whole-prompt
+    # prefill, its tokens up to the first step whose lead is within the bar
+    # on the logits. Phase 8's bf16 rule holds a bf16 path to the reach of
+    # bf16 rounding (its distance from the f32 result on the same weights
+    # and tokens); the engine's chunks (which also read a bf16 conv history
+    # at each chunk boundary, as in JAX) and the solo run are two bf16
+    # paths to one f32 result, so they are held to twice the reach
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    worst_state, compared = 0.0, 0
+    for r in reqs:
+        prompt = torch.from_numpy(r.tokens.astype(np.int64)).to(dev)
+        argmax, leads, last, cache = solo_forced(params, cfg, prompt,
+                                                 got[r.rid])
+        logits32, cache32 = decode.prefill(params, cfg32,
+                                           {"tokens": prompt[None]},
+                                           len(prompt) + 1, last_only=True)
+        solo = cache[0]["l0"]["state"][:, 0]
+        reach = float((solo - cache32[0]["l0"]["state"][:, 0]).abs().max())
+        err = float((states[r.rid] - solo).abs().max())
+        check(err <= 2 * reach, f"mamba2 engine: request {r.rid}'s carried "
+              f"state differs from its solo prefill by {err:.3g}, past twice "
+              f"the bf16 reach {reach:.3g}")
+        worst_state = max(worst_state, err / reach)
+        compared += solo_agrees(
+            "mamba2 engine", r.rid, got[r.rid], argmax, leads,
+            2 * float((last - logits32[0, -1]).abs().max()))
+        del cache, cache32
+    row = check_ssd_scan(timer, f"engine chunk [1, {chunk}, "
+                         f"{cfg.ssd_cfg.n_heads}, {cfg.ssm_head_dim}] "
+                         "init_state", scan_in, chunk, init=scan_in["init"])
+    prof = engine_profile(eng.params, cfg, trace(), eng_kw)
+    cache_b, weight_b = tick_bytes(eng)
+    out = dict(report=rep, run_s=run_s, launches=launches,
+               init_launches=init_launches, decode_calls=seen["decode"],
+               chunk_calls=seen["chunks"], state_err_over_reach=worst_state,
+               solo_clear_steps_compared=compared, profile=prof,
+               tick_cache_bytes=cache_b, tick_weight_bytes=weight_b,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print_engine("phase 13b mamba2-1.3b engine", rep, prof, launches,
+                 f" (with init_state {init_launches} = (sum of chunks - 1) x"
+                 f" {cfg.n_layers}); run {run_s:.3f} s, carried state / bf16 "
+                 f"reach <= {worst_state:.3g}, clear solo steps compared "
+                 f"{compared}, a tick moves {cache_b / 1e9:.2f} GB of cache "
+                 f"and {weight_b / 1e9:.2f} GB of weights")
+    return out, row, launches["ssd_scan"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2332,6 +2817,41 @@ def main() -> int:
     t0 = time.perf_counter()
     rgemma_phase(dev)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # 13. the continuous-batching engine: kan_llm on fused and lut, then
+    # mamba2-1.3b, each run launch-counted
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng13a, krows13, launches13a = engine_kan_llm_phase(timer, dev)
+    rows["kan_fused"].extend(krows13)
+    launches["kan_fused"] += launches13a
+    for r in krows13:
+        print(f"kernel kan_fused {r['shape']}: max|err| {r['max_abs_err']:.3g}"
+              f", err/sum|terms| {r['max_err_over_sum_abs_terms']:.3g}, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f}, host "
+              f"{r['host_ms']:.4f} (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})")
+    print("phase 13a: " + json.dumps(eng13a))
+    print(f"phase 13a: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng13b, srow13, launches13b = engine_mamba2_phase(timer, dev)
+    rows["ssd_scan"].append(srow13)
+    launches["ssd_scan"] += launches13b
+    print(f"kernel ssd_scan {srow13['shape']}: max|err| vs plain y "
+          f"{srow13['y_vs_plain_max_abs_err']:.3g} state "
+          f"{srow13['state_vs_plain_max_abs_err']:.3g}; err/tolerance vs "
+          f"plain y {srow13['y_vs_plain_err_over_tol']:.3g} state "
+          f"{srow13['state_vs_plain_err_over_tol']:.3g}, vs ssd_ref y "
+          f"{srow13['y_vs_ssd_ref_err_over_tol']:.3g} state "
+          f"{srow13['state_vs_ssd_ref_err_over_tol']:.3g}; "
+          f"{srow13['ms']:.4f} ms (plain {srow13['plain_ms']:.4f}, bound "
+          f"{srow13['bound_ms']:.4f} by {srow13['bound_by']}, 3xTF32 bound "
+          f"{srow13['bound_tf32_ms']:.4f})")
+    print("phase 13b: " + json.dumps(eng13b))
+    print(f"phase 13b: {time.perf_counter() - t0:.1f} s")
 
     # result lines
     kernels = []

@@ -609,6 +609,18 @@ def apply_any(params_or_deployed, x: torch.Tensor, spec: KANSpec
     return train_apply(params_or_deployed, x, spec)
 
 
+def contains_deployed(tree) -> bool:
+    """True if any subtree of ``tree`` (nested dicts and lists) is a frozen
+    ``DeployedKAN``: whether a model serves the deployed path."""
+    if isinstance(tree, DeployedKAN):
+        return True
+    if isinstance(tree, Mapping):
+        return any(contains_deployed(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(contains_deployed(v) for v in tree)
+    return False
+
+
 # ---------------------------------------------------------------------------
 # Weights carried across from the JAX package (as numpy arrays)
 # ---------------------------------------------------------------------------

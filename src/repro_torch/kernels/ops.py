@@ -38,6 +38,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _KERNELS.values():
         fn.launches = 0
+    _ssd.ssd_scan.init_launches = 0
 
 
 def _same_device(what: str, ref_t: torch.Tensor, **tensors) -> None:

@@ -84,7 +84,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     outer strides (slices of the mixer's projection are read in place).
     T need not be a multiple of ``chunk``. Returns (y [B, T, H, P],
     final_state [B, H, P, N]). Counts each call in ``ssd_scan.launches``
-    (one call launches the kernel's five CUDA kernels)."""
+    (one call launches the kernel's five CUDA kernels), and a call with
+    ``init_state`` (a chunked prefill's carried state) also in
+    ``ssd_scan.init_launches``."""
     bsz, t, h, p = x.shape
     n = b_mat.shape[-1]
     if (dt.shape != (bsz, t, h) or a.shape != (h,)
@@ -133,10 +135,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         b_mat.stride(0), b_mat.stride(1), c_mat.stride(0), c_mat.stride(1),
         stream), "ssd_scan launch")
     ssd_scan.launches += 1
+    ssd_scan.init_launches += init_state is not None
     return y, final
 
 
 ssd_scan.launches = 0
+ssd_scan.init_launches = 0
 
 
 # ---------------------------------------------------------------------------

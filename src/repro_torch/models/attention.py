@@ -18,9 +18,14 @@ that each product is one batched matmul over (B, Kv).
 The softmax is written out rather than taken from
 ``scaled_dot_product_attention``, which sums in another order: the port
 follows the reference. Masked scores are ``NEG_INF = -1e30``, not -inf, so a
-fully masked row gives uniform weights, not NaN. The paged-pool functions
-(``paged_gather``, ``paged_cache_update``, ``paged_prefill_update``) belong
-to the serving engine (ROADMAP Slice E).
+fully masked row gives uniform weights, not NaN.
+
+The serving engine's page pool (``serve.decode.init_paged_cache``) is read
+by ``paged_gather`` and written by ``paged_cache_update`` (one decode token
+per slot) and ``paged_prefill_update`` (one slot's prefill chunk). Where
+the reference returns updated pools (donated, so XLA updates them in
+place), these write the given pool in place: the engine's pools are the
+whole KV memory, and a copy per tick would move all of it.
 """
 from __future__ import annotations
 
@@ -201,3 +206,56 @@ def cache_update(k_cache: Tensor, v_cache: Tensor, k_new: Tensor,
         k_out[:, slot] = k_new[:, 0].to(k_cache.dtype)
         v_out[:, slot] = v_new[:, 0].to(v_cache.dtype)
     return k_out, v_out
+
+
+def paged_gather(pool: Tensor, pages: Tensor) -> Tensor:
+    """Per-slot K or V rows from a page pool.
+
+    pool: [n_pages, ps, Kv, hd] (one layer's pages, shared by all slots);
+    pages: [B, P] page tables (long) — entry j is the physical page holding
+    logical tokens [j*ps, (j+1)*ps). Returns [B, P*ps, Kv, hd] in logical
+    position order, so it drops into ``decode_attention`` and
+    ``chunked_attention`` like a cache row (garbage-page entries lie past
+    the valid length, where they are masked)."""
+    b, p = pages.shape
+    _, ps, n_kv, hd = pool.shape
+    return pool[pages].reshape(b, p * ps, n_kv, hd)
+
+
+def paged_cache_update(k_pool: Tensor, v_pool: Tensor, k_new: Tensor,
+                       v_new: Tensor, pages: Tensor, index: Tensor) -> None:
+    """Write one decode token's K/V per slot through the page tables, in
+    place. k_new/v_new: [B, 1, Kv, hd]; pages: [B, P]; index: [B], the
+    0-based position of the incoming token. Slot b writes page
+    ``pages[b, index[b] // ps]`` at offset ``index[b] % ps``. Live slots
+    write distinct pages (the engine gives each its own write pages);
+    inactive slots all write the garbage page, where which of the colliding
+    writes lands does not matter: it is never read."""
+    ps = k_pool.shape[1]
+    phys = torch.gather(pages, 1, (index // ps)[:, None])[:, 0]
+    within = index % ps
+    k_pool[phys, within] = k_new[:, 0].to(k_pool.dtype)
+    v_pool[phys, within] = v_new[:, 0].to(v_pool.dtype)
+
+
+def paged_prefill_update(k_pool: Tensor, v_pool: Tensor, k_new: Tensor,
+                         v_new: Tensor, pages_row: Tensor, start: int
+                         ) -> None:
+    """Write one prefill chunk's K/V into a single slot's pages, in place.
+
+    k_new/v_new: [1, L, Kv, hd], the chunk at logical positions [start,
+    start + L), ``start`` page-aligned; pages_row: [P], the slot's page
+    table. The chunk is zero-padded to whole pages (the tail of a partial
+    last page is masked garbage) and written to ``pages_row[start // ps :
+    start // ps + ceil(L / ps)]``: pages the slot allocated itself, never
+    a shared prefix page."""
+    ps = k_pool.shape[1]
+    _, l, n_kv, hd = k_new.shape
+    n_cp = -(-l // ps)
+    pad = n_cp * ps - l
+    if pad:
+        k_new = torch.nn.functional.pad(k_new, (0, 0, 0, 0, 0, pad))
+        v_new = torch.nn.functional.pad(v_new, (0, 0, 0, 0, 0, pad))
+    dst = pages_row[start // ps:start // ps + n_cp]
+    k_pool[dst] = k_new[0].reshape(n_cp, ps, n_kv, hd).to(k_pool.dtype)
+    v_pool[dst] = v_new[0].reshape(n_cp, ps, n_kv, hd).to(v_pool.dtype)

@@ -119,20 +119,26 @@ def _causal_conv(u: Tensor, w: Tensor) -> Tensor:
     return out
 
 
-def ssd_inputs(params: Dict[str, Tensor], x: Tensor, cfg: SSDConfig
-               ) -> Dict[str, Tensor]:
+def ssd_inputs(params: Dict[str, Tensor], x: Tensor, cfg: SSDConfig,
+               conv_hist: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """The mixer's projection, conv and gates for x [B,T,D]: ``z`` [B,T,di],
     the scan's inputs ``x`` [B,T,H,P], ``dt`` [B,T,H], ``a`` [H], ``B``/``C``
     [B,T,N] and ``d_skip`` [H], and ``conv_in`` [B,T,di+2N] (what the decode
     cache keeps). x, B and C are views of one conv output; the kernel reads
-    them in place."""
+    them in place. ``conv_hist`` [B,K-1,di+2N]: the conv inputs before x
+    (a chunked prefill's carried buffer); None means zeros."""
     b, t, _ = x.shape
     di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
     # bf16 @ f32 is promoted to f32 (as JAX does): z, x, B, C, dt are f32
     zxbcdt = layers.matmul(x, params["in_proj"])
     z, xin, bmat, cmat, dt = torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, params["conv"]))
+    if conv_hist is None:
+        conv_out = F.silu(_causal_conv(conv_in, params["conv"]))
+    else:
+        full = torch.cat([conv_hist.to(conv_in.dtype), conv_in], dim=1)
+        conv_out = F.silu(_causal_conv(full, params["conv"])[
+            :, conv_hist.shape[1]:])
     xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
     return {"z": z, "x": xin.reshape(b, t, h, cfg.head_dim),
             "dt": softplus(dt.to(torch.float32) + params["dt_bias"]),

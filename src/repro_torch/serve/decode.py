@@ -1,5 +1,6 @@
-"""Serving: prefill (build caches) and single-token decode steps (port of
-``repro.serve.decode``, restricted to static-batch serving).
+"""Serving: prefill (build caches), single-token decode steps and the paged
+engine's chunked prefill (port of ``repro.serve.decode``; its sharding
+``*_spec`` functions are Slice F).
 
 Cache layouts per layer (stacked [repeats, ...] inside a repeated stage):
   attn        — K/V caches [B, T, Kv, hd] in the compute dtype, T =
@@ -17,11 +18,23 @@ Cache layouts per layer (stacked [repeats, ...] inside a repeated stage):
 A ``bidir`` mixer has no cache and, as in the reference, prefill and decode
 skip it (it serves an encoder, which is Slice D6).
 
-The paged pool (``pages``) and the continuous-batching engine behind a
-list-of-prompts ``generate`` are ROADMAP Slice E.
+Paged serving (the continuous-batching engine's layout, ``serve.engine``):
+full-attention K/V lives in a shared page pool instead of per-slot rows.
+``init_paged_cache`` builds [n_pages, page_size, Kv, hd] pools for every
+``attn`` layer (one page-id space indexes all of them); SWA/local rings,
+SSD/RG-LRU state and conv buffers stay per slot. ``decode_step(...,
+pages=[B, P])`` routes reads and writes through the page tables, and
+``prefill_chunk`` consumes a prompt one page-aligned chunk at a time.
+``chunk_tokens_for`` gives the largest chunk that keeps the math identical
+to a solo run, or None for families that prefill in one piece. Unlike the
+reference, which returns new caches (donated, so XLA writes them in
+place), the paged functions write the engine's cache in place and return
+it: the pools are the whole KV memory, and a copy per tick would move all
+of it. The static-batch functions still return new caches.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -78,6 +91,70 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 (r,) + (1,) * x.ndim), blk)
         out.append(blk)
     return out
+
+
+def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
+                     page_size: int, n_pages: int, device=None) -> list:
+    """Cache tree of the paged serving engine (``device=None``: the card).
+    As ``init_cache``, except that every full-attention layer's K/V is a
+    shared page pool [n_pages, page_size, Kv, hd]: slots address it through
+    page tables (``pages`` in ``decode_step``), so memory scales with live
+    tokens, not ``n_slots * max_len``. Every other leaf keeps its per-slot
+    [n_slots, ...] rows."""
+    device = resolve_device(device)
+    pool_shape = (n_pages, page_size, cfg.padded_kv_heads,
+                  cfg.resolved_head_dim)
+    out = []
+    for stage in tfm.stages_for(cfg):
+        blk = {}
+        for i, sp in enumerate(stage.block):
+            if sp.mixer == "attn":
+                tfm.check_ported(sp)
+                blk[f"l{i}"] = {k: torch.zeros(pool_shape, dtype=cfg.dtype,
+                                               device=device)
+                                for k in ("k", "v")}
+            else:
+                blk[f"l{i}"] = _init_layer_cache(sp, cfg, n_slots, max_len,
+                                                 device)
+        if stage.repeats > 1:
+            blk = tfm.tree_map(lambda x, r=stage.repeats: x[None].repeat(
+                (r,) + (1,) * x.ndim), blk)
+        out.append(blk)
+    return out
+
+
+def chunk_tokens_for(cfg: ModelConfig, page_size: int) -> Optional[int]:
+    """Chunked-prefill unit (tokens per engine tick), or None when the arch
+    must prefill each prompt in one piece.
+
+    Only where chunking is exact against a solo whole-prompt run:
+    pure-attention stacks (masked page slots add exact zeros to the online
+    softmax) and attention+SSD stacks (``ssd_chunked`` carries
+    ``init_state`` across chunks whose boundaries are multiples of the SSD
+    scan chunk, hence the lcm). RG-LRU, SWA/local windows, MoE, enc-dec and
+    frontends prefill whole, still into the paged pool."""
+    if cfg.family == "encdec" or cfg.frontend != "none":
+        return None
+    specs = [sp for st in tfm.stages_for(cfg) for sp in st.block]
+    mixers = {sp.mixer for sp in specs}
+    if any(sp.ffn == "moe" for sp in specs) or not mixers <= {"attn", "ssd"}:
+        return None
+    step = page_size
+    if "ssd" in mixers:
+        c = cfg.ssd_cfg.chunk
+        step = step * c // math.gcd(step, c)
+    return step
+
+
+def prefix_sharing_ok(cfg: ModelConfig) -> bool:
+    """Whether hash-matched prompt prefixes may share physical pages: only
+    pure-attention decoder stacks, whose whole sequence state lies in the
+    pages. A recurrent mixer carries per-slot state the pool does not
+    hold."""
+    if chunk_tokens_for(cfg, 1) is None:
+        return False
+    return {sp.mixer for st in tfm.stages_for(cfg)
+            for sp in st.block} == {"attn"}
 
 
 def _decode_positions(index, device):
@@ -145,22 +222,91 @@ def _run_layers(params, cache, x: Tensor, cfg: ModelConfig, layer_fn
     return x, new_caches
 
 
+def _run_layers_(params, cache, x: Tensor, cfg: ModelConfig, layer_fn
+                 ) -> Tensor:
+    """``layer_fn(p, c, x, spec) -> x``, which writes the layer's cache
+    ``c`` in place, over every layer in order; a stacked stage's repeats
+    get views of its stacks, so their writes land in the engine's
+    tensors."""
+    for st_params, st_cache, stage in zip(params["stages"], cache,
+                                          tfm.stages_for(cfg)):
+        for r in range(stage.repeats):
+            lp, lc = ((st_params, st_cache) if stage.repeats == 1 else
+                      (tfm.layer_of(st_params, r), tfm.layer_of(st_cache, r)))
+            for i, sp in enumerate(stage.block):
+                x = layer_fn(lp[f"l{i}"], lc[f"l{i}"], x, sp)
+    return x
+
+
+def _mask_state_writes_(new, cache, pages: Tensor) -> None:
+    """Write recurrent per-slot state (ssd/rglru rows) in place, but only
+    for slots that are decoding: a slot mid chunked-prefill holds real
+    carried state that a tick between its chunks must not overwrite. The
+    page table doubles as the activity mask: the engine points an inactive
+    slot's whole row at the garbage page, so entry 0 is a real page iff the
+    slot decodes."""
+    act = pages[:, 0] != 0                   # paging.GARBAGE_PAGE
+    for k, v in new.items():
+        c = cache[k]
+        mask = act.reshape((-1,) + (1,) * (v.ndim - 1))
+        c.copy_(torch.where(mask, v.to(c.dtype), c))
+
+
+def _decode_layer_paged(p, cache, x: Tensor, spec: LayerSpec,
+                        cfg: ModelConfig, index: Tensor, pages: Tensor
+                        ) -> Tensor:
+    """One layer of the engine's fused tick, writing ``cache`` in place.
+    x: [B, 1, D]; index, pages: [B], [B, P]. Full attention reads and
+    writes the page pool; the other mixers run the static step on their
+    per-slot rows, the recurrent ones masked to the decoding slots (as the
+    reference; a SWA/local ring of a slot that is not decoding takes a
+    garbage write at slot 0, which the next whole prefill overwrites)."""
+    if spec.mixer != "attn":
+        x, new = _decode_layer(p, cache, x, spec, cfg, index)
+        new = {k: v for k, v in new.items() if v is not cache[k]}
+        if spec.mixer in ("ssd", "rglru"):
+            _mask_state_writes_(new, cache, pages)
+        else:
+            for k, v in new.items():
+                cache[k].copy_(v)
+        return x
+    xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+    q, k, v = tfm.qkv(p, xn, cfg)
+    if cfg.rope_theta:
+        q = layers.apply_rope(q, index[:, None], cfg.rope_theta)
+        k = layers.apply_rope(k, index[:, None], cfg.rope_theta)
+    attn_lib.paged_cache_update(cache["k"], cache["v"], k, v, pages, index)
+    o = attn_lib.decode_attention(q, attn_lib.paged_gather(cache["k"], pages),
+                                  attn_lib.paged_gather(cache["v"], pages),
+                                  index + 1)
+    x = x + tfm.heads_out(o, p["attn"]["wo"], cfg.dtype)
+    return tfm.apply_ffn(p, x, spec, cfg)
+
+
 def decode_step(params, cache, tokens: Tensor, index, cfg: ModelConfig, *,
                 pages: Optional[Tensor] = None) -> Tuple[Tensor, list]:
     """One decode step. tokens: [B, 1] -> (logits [B, 1, V], new cache).
 
     ``index`` is the 0-based position of the incoming token: a scalar when
     the whole batch decodes in lockstep, or a [B] vector (each row at its
-    own position). ``pages`` (the paged engine's page tables) is Slice E
-    and must be None."""
-    if pages is not None:
-        raise NotImplementedError("paged decode is not ported yet: ROADMAP "
-                                  "Slice E (serving engine)")
+    own position).
+
+    ``pages`` ([B, P] long page tables, the paged engine's) makes every
+    full-attention layer read and write the shared page pool; the cache
+    must come from ``init_paged_cache``, and is written in place and
+    returned. Inactive slots point every entry at the garbage page, so
+    their writes touch no live page."""
     if cfg.family == "encdec":
         raise tfm.not_ported("family", "encdec")
     table = params["embed"]
     x = layers.embed_lookup(table, torch.as_tensor(tokens, device=table.device)
                             ).to(cfg.dtype)
+    if pages is not None:
+        pages = torch.as_tensor(pages, device=x.device)
+        index = torch.as_tensor(index, device=x.device).expand(x.shape[0])
+        x = _run_layers_(params, cache, x, cfg, lambda p, c, xx, sp:
+                         _decode_layer_paged(p, c, xx, sp, cfg, index, pages))
+        return tfm.logits_from(params, cfg, x), cache
     if not isinstance(index, int):
         index = torch.as_tensor(index, device=x.device)
     x, new_caches = _run_layers(
@@ -272,6 +418,96 @@ def prefill(params, cfg: ModelConfig, batch: Mapping, max_len: int,
     return tfm.logits_from(params, cfg, x), new_caches
 
 
+def _ssd_prefill_chunk(p, x: Tensor, cfg: ModelConfig,
+                       row: Dict[str, Tensor], first: bool
+                       ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One chunk of SSD prefill for one slot (batch 1). ``row`` holds the
+    slot's carried ``state`` [1,H,P,N] and ``conv_buf`` [1,K-1,di+2N];
+    ``first`` means zero history, which is the solo ``_ssd_prefill``'s
+    math. A later chunk starts the scan from the carried state
+    (``ssd_chunked``'s ``init_state``), exact because chunk boundaries are
+    multiples of the scan's chunk (``chunk_tokens_for``)."""
+    scfg = cfg.ssd_cfg
+    b, t, _ = x.shape
+    hist = None if first else row["conv_buf"]
+    s = ssd_lib.ssd_inputs(p, x, scfg, conv_hist=hist)
+    conv_in = s["conv_in"]
+    prev = (conv_in.new_zeros((b, scfg.conv_width - 1, conv_in.shape[-1]))
+            if first else hist.to(conv_in.dtype))
+    full = torch.cat([prev, conv_in], dim=1)
+    new_buf = full[:, full.shape[1] - (scfg.conv_width - 1):].to(cfg.dtype)
+    y, state = ssd_lib.ssd_chunked(
+        s["x"], s["dt"], s["a"], s["B"], s["C"], s["d_skip"],
+        chunk=scfg.chunk,
+        init_state=None if first else row["state"].to(torch.float32))
+    y = ssd_lib.ssd_output(p, y.reshape(b, t, scfg.d_inner), s["z"], x.dtype)
+    return y, {"state": state.to(row["state"].dtype), "conv_buf": new_buf}
+
+
+def _chunk_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
+                 positions: Tensor, start: int, slot: int,
+                 pages_row: Tensor, first: bool) -> Tensor:
+    """One layer of chunked prefill for one slot, writing ``cache`` in
+    place. x: [1, L, D]. Full attention writes the chunk into the slot's
+    pages and, after the first chunk, reads every earlier page back; SSD
+    runs on the slot's row of the per-slot state, written back into that
+    row. Only the families ``chunk_tokens_for`` admits reach here."""
+    tfm.check_ported(spec)
+    if spec.mixer == "attn":
+        xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+        q, k, v = tfm.qkv(p, xn, cfg)
+        if cfg.rope_theta:
+            q = layers.apply_rope(q, positions, cfg.rope_theta)
+            k = layers.apply_rope(k, positions, cfg.rope_theta)
+        attn_lib.paged_prefill_update(cache["k"], cache["v"], k, v,
+                                      pages_row, start)
+        if first:       # start == 0: self-contained, the solo math
+            o = attn_lib.chunked_attention(q, k, v, causal=True,
+                                           kv_chunk=cfg.attn_kv_chunk)
+        else:
+            o = attn_lib.chunked_attention(
+                q, attn_lib.paged_gather(cache["k"], pages_row[None]),
+                attn_lib.paged_gather(cache["v"], pages_row[None]),
+                causal=True, q_offset=start, kv_valid_len=start + x.shape[1],
+                kv_chunk=cfg.attn_kv_chunk)
+        x = x + tfm.heads_out(o, p["attn"]["wo"], cfg.dtype)
+    elif spec.mixer == "ssd":
+        xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
+        row = {k: cache[k][slot:slot + 1] for k in ("state", "conv_buf")}
+        y, rc = _ssd_prefill_chunk(p["ssd"], xn, cfg, row, first)
+        for k, v in rc.items():
+            row[k].copy_(v)         # row[k] is a view of the slot's row
+        x = x + y.to(x.dtype)
+    else:
+        raise NotImplementedError(
+            f"chunked prefill does not support mixer={spec.mixer!r} "
+            "(chunk_tokens_for should have returned None)")
+    return tfm.apply_ffn(p, x, spec, cfg)
+
+
+def prefill_chunk(params, cfg: ModelConfig, cache, tokens: Tensor,
+                  start: int, slot: int, pages_row: Tensor, *, first: bool,
+                  last: bool) -> Tuple[Tensor, list]:
+    """Consume one page-aligned prompt chunk for one slot of the paged
+    engine. tokens: [1, L] at positions [start, start + L); ``cache`` is
+    the engine's ``init_paged_cache`` tree, written in place and returned;
+    ``pages_row`` [P] is the slot's page table.
+
+    Returns (token [1] long, cache): the greedy next token after the
+    prompt when ``last``, else zeros (a non-final chunk never unembeds)."""
+    table = params["embed"]
+    tokens = torch.as_tensor(tokens, device=table.device)
+    x = layers.embed_lookup(table, tokens).to(cfg.dtype)
+    positions = start + torch.arange(tokens.shape[1], device=x.device)
+    pages_row = torch.as_tensor(pages_row, device=x.device)
+    x = _run_layers_(params, cache, x, cfg, lambda p, c, xx, sp: _chunk_layer(
+        p, c, xx, sp, cfg, positions, start, slot, pages_row, first))
+    if not last:
+        return torch.zeros((1,), dtype=torch.long, device=x.device), cache
+    logits = tfm.logits_from(params, cfg, x[:, -1:])
+    return torch.argmax(logits[:, -1], dim=-1), cache
+
+
 def generate(params, cfg: ModelConfig, prompt, n_new: int,
              max_len: Optional[int] = None) -> Tensor:
     """Greedy generation for a rectangular [B, S] prompt (static batch,
@@ -280,15 +516,18 @@ def generate(params, cfg: ModelConfig, prompt, n_new: int,
     Contract (pinned, as in JAX): returns exactly ``n_new`` tokens per
     request, [B, n_new]. Token 0 is the argmax over the prefill logits at
     the last prompt position, so ``n_new=1`` runs no decode step;
-    ``n_new < 1`` raises. A list of prompts of different lengths goes
-    through the continuous-batching engine in JAX, which is Slice E here.
+    ``n_new < 1`` raises. A list of 1-D prompts of different lengths goes
+    through the continuous-batching engine (``engine.generate_dynamic``),
+    on the device of the parameters, and still returns [len(prompt),
+    n_new].
     """
     if n_new < 1:
         raise ValueError(f"n_new must be >= 1, got {n_new}")
     if isinstance(prompt, (list, tuple)):
-        raise NotImplementedError(
-            "a list of prompts needs the continuous-batching engine, which "
-            "is not ported yet: ROADMAP Slice E")
+        from repro_torch.serve import engine as engine_lib
+        return engine_lib.generate_dynamic(params, cfg, prompt, n_new,
+                                           max_len=max_len,
+                                           device=params["embed"].device)
     prompt = torch.as_tensor(prompt, device=params["embed"].device)
     b, s = prompt.shape
     max_len = max_len or (s + n_new)

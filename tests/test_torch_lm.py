@@ -424,7 +424,7 @@ def test_prefill_last_only():
 def test_generate_n_new_1_contract():
     """Exactly n_new tokens; token 0 is the argmax of the prefill's last
     position, so n_new=1 runs no decode step; n_new < 1 raises; a list of
-    prompts needs the engine (Slice E)."""
+    prompts goes through the engine and gives each prompt's own tokens."""
     m = tm2.SMOKE.model
     params = ttfm.init_model(4, m, device="cpu")
     prompt = torch.from_numpy(_tokens(m.vocab, (B, 8), seed=5))
@@ -439,13 +439,18 @@ def test_generate_n_new_1_contract():
     assert bool(((out3 >= 0) & (out3 < m.vocab)).all())
     with pytest.raises(ValueError, match="n_new"):
         tdec.generate(params, m, prompt, n_new=0)
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        tdec.generate(params, m, [prompt[0], prompt[1, :5]], n_new=2)
+    ragged = tdec.generate(params, m, [prompt[0], prompt[1, :5]], n_new=3)
+    assert ragged.shape == (2, 3)
+    assert torch.equal(ragged[0], out3[0])
+    assert torch.equal(ragged[1], tdec.generate(params, m, prompt[1:, :5],
+                                                n_new=3)[0])
 
 
 def test_decode_step_vector_index_matches_scalar():
     """A [B] index vector with every row at one position is bitwise the
-    scalar path (logits and every cache leaf)."""
+    scalar path (logits and every cache leaf); so is the paged engine's
+    step (``pages``) for the rows it marks active, written in place, while
+    an inactive row's state is left as it was."""
     m = tm2.SMOKE.model
     params = ttfm.init_model(5, m, device="cpu")
     toks = torch.from_numpy(_tokens(m.vocab, (B, S), seed=6))
@@ -457,9 +462,18 @@ def test_decode_step_vector_index_matches_scalar():
     assert torch.equal(ls, lv)
     for a, b in zip(ttfm.tree_leaves(cs), ttfm.tree_leaves(cv)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        tdec.decode_step(params, cache, toks[:, :1], 0, m,
-                         pages=torch.zeros((B, 1), dtype=torch.int32))
+    paged = ttfm.tree_map(torch.clone, cache)
+    pages = torch.ones((B, 1), dtype=torch.long)
+    pages[-1] = 0                        # the last row is not decoding
+    lp, cp = tdec.decode_step(params, paged, toks[:, S - 2:S - 1],
+                              torch.full((B,), S - 2), m, pages=pages)
+    assert cp is paged
+    assert torch.equal(lp[:-1], ls[:-1])
+    # one stacked stage: every leaf is [layers, B, ...]
+    for a, b, c in zip(ttfm.tree_leaves(cs), ttfm.tree_leaves(cp),
+                       ttfm.tree_leaves(cache)):
+        assert torch.equal(b[:, :-1], a[:, :-1])
+        assert torch.equal(b[:, -1:], c[:, -1:])
 
 
 def test_bf16_decode_reads_a_rounded_history():

@@ -16,13 +16,19 @@ from repro_torch.configs import cf_kan_1  # noqa: E402
 from repro_torch.core import kan, kan_sam  # noqa: E402
 from repro_torch.examples import kan_neurosim_search  # noqa: E402
 from repro_torch.examples import quickstart, train_cf_kan  # noqa: E402
+from repro_torch.examples import serve_kan_llm  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import mamba2_1p3b  # noqa: E402
 from repro_torch.models import cf_kan  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.serve import decode  # noqa: E402
+from repro_torch.serve import decode, engine  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+SERVING_MODULES = ("serve.engine", "serve.paging", "serve.scheduler",
+                   "obs", "obs.export", "obs.metrics", "obs.profile",
+                   "obs.recorder", "obs.sketch", "obs.slo", "obs.trace",
+                   "launch.serve", "examples.serve_kan_llm")
 
 
 def test_imports_with_jax_and_repro_blocked():
@@ -41,13 +47,16 @@ def test_imports_with_jax_and_repro_blocked():
                         if m.split(".")[0] in ("jax", "jaxlib", "repro")
                         and sys.modules[m] is not None)
         assert not leaked, leaked
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 15
+    # the serving slice's modules among them
+    assert {f"repro_torch.{m}" for m in SERVING_MODULES} <= names
 
 
 def test_sources_name_no_jax_or_repro():
@@ -82,11 +91,15 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         transformer.params_from_numpy({"stages": [{"embed": np.zeros(2)}]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode.init_cache(lm, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode.init_paged_cache(lm, 1, 8, page_size=4, n_pages=3)
     # the command lines: the card unless given --device cpu
     for main in (train_cf_kan.main, kan_neurosim_search.main,
-                 quickstart.main):
+                 quickstart.main, serve_kan_llm.main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--arch", "mamba2_1p3b", "--smoke"])
     params = kan.init(0, spec, device="cpu")
     assert params["coeffs"].device.type == "cpu"
     lm_params = transformer.init_model(0, lm, device="cpu")
@@ -95,6 +108,15 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     out = decode.generate(lm_params, lm, torch.zeros((1, 4), dtype=torch.long),
                           n_new=2)
     assert out.shape == (1, 2) and out.device.type == "cpu"
+    # the engine: the card unless told, and then its cache lies there
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.Engine(lm_params, lm, n_slots=1, max_len=8)
+    eng = engine.Engine(lm_params, lm, n_slots=1, max_len=8, device="cpu")
+    assert all(t.device.type == "cpu"
+               for t in transformer.tree_leaves(eng.cache))
+    out = decode.generate(lm_params, lm, [np.arange(3), np.arange(5)],
+                          n_new=2)
+    assert out.shape == (2, 2) and out.device.type == "cpu"
 
 
 TINY_TRAIN = ["--items", "64", "--users", "128", "--hidden", "8", "--steps",
