@@ -2,7 +2,9 @@
 recurrentgemma-2b, train CF-KAN-1 and search its per-layer operating points
 at full width on one CUDA card through the port's hand-written kernels,
 serve the KAN-FFN LLM and mamba2-1.3b through the continuous-batching
-engine, and hold every kernel against its plain version.
+engine and the KAN-FFN LLM through the multi-replica router and the
+launcher's fleet path, run mixtral-8x7b over a measured cut of its layers,
+and hold every kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -236,6 +238,75 @@ Phases (any failed check raises, and the script exits non-zero):
    ticks (after 10 unprofiled), and its time per fused tick and per chunk
    (one call of each from that window, repeated 5 times).
 
+14. The fleet layer and MoE. (a) The router (``serve.router.Router``)
+   over 4 replicas of phase 13a's ``kan_llm`` ``CONFIG`` engine on
+   ``fused`` (16 slots, pages of 64, max_len 704), all on the one card,
+   sharing one deploy (the single engine's, whose profiler state each
+   replica adopts) and each holding its own page pool; 128 requests from
+   ``synth_trace(4096, 128, min_prompt=128, max_prompt=512,
+   common_prefix=128, min_new=16, max_new=64, stagger=1, seed=0)``. First
+   a single engine runs the trace (the tokens every fleet is held to, and
+   the one-engine throughput), then three fleet runs, each
+   launch-counted (``kan_fused`` exactly 8 times per fused tick and per
+   chunk of every replica): plain routing; ``schedule_drain(1, 20)``;
+   ``ChipHealth`` canaries on every replica (tiles of 64 x 16, layers 0
+   and 1, 2 row tiles) with drift rate 0.05, tau 4 on replica 2 only,
+   polled every 2 ticks at threshold 0.05 under the launcher's lenient
+   SLOs. Every request completes its budget, every replica is routed to,
+   affinity hits, pages all return; the drain requeues and nothing is
+   dispatched to replica 1 after it; the health run drains replica 2 and
+   never the last live replica; each request's tokens equal the single
+   engine's up to the first step whose lead (a teacher-forced forward on
+   the single engine's tokens) is within ``F32_PATH_BAR`` (phase 10a's
+   rule). Per run: ticks, ``agg_tokens_per_s`` (the reference's modeled
+   concurrency: router_s + the slowest replica's busy_s, the replicas
+   being stepped one after the other), its scaling efficiency against 4 x
+   the single engine's tokens/s, router_s as a share of wall time,
+   busy_s per replica, fleet TTFT/TPOT p50/p99 from the merged sketches,
+   requeued and drained, and the device's time and idle share over router
+   ticks 10-16 of a second fleet set up the same way on the same trace
+   (profiler; the measured run stays unprofiled). ``kan_fused`` is held
+   as in phase 3 on layer
+   0's inputs captured at the tick's 16 rows. (b) The launcher,
+   ``launch.serve.main`` in process: ``--arch kan_llm --kan-backend
+   cim_tiled --replicas 2 --drift-replica 1 --check --slots 16 --requests
+   32 --stagger 1 --metrics-out``: ``--check`` passes (no lost request, a
+   health drain, the fleet's tokens those of a healthy single engine),
+   the metrics hold the ``chip_*`` and ``chip_layer_*`` gauges
+   (``hw.chip.publish_report``) and canary gauges for both replicas;
+   ``cim_mac_tiled`` launches in the engine's tick at 16 rows (up and
+   down layers), and every input the run gave it (each layer at each row
+   count, in the tick and in prefills, on the row attenuation and gains
+   it was given) is held bit for bit against the plain version, each
+   shape timed once. (c)
+   mixtral-8x7b ``CONFIG`` (d 4096, 32/8 heads, 8 experts top-2, d_ff
+   14336, window 4096, bf16 compute, f32 params, capacity factor 1.25)
+   from a seeded CUDA generator over the deepest cut of its 32 layers that
+   fits: the phase's path at 2 and 3 layers (``MIXTRAL_CALIB``) gives
+   each part's peak memory and its growth per layer, and the cut is the
+   most layers whose every part stays under 88% of the card (phase 10b ran at 87.8%). 2 prompts
+   of 5120 tokens (``batch_at(vocab=32000, batch=2, seq_len=5120,
+   seed=0)``, past the window): ``generate`` 32, both prompts routed
+   together, with every MoE call's ``moe_drop_frac`` held to the share of
+   slots past capacity that its expert counts give; the prefill and
+   decode steps timed (they repeat generate); the ring cache holds
+   exactly ``window`` slots, each written. Then each prompt alone, so
+   that the served path and not the check sets the cut: forward's bf16
+   run records its top-k choices and every other path (forward in f32,
+   prefill and decode in bf16 and f32) routes each token to the same
+   experts, with the weights from its own probabilities. At capacity
+   factor 1.25 the prefill's last logits and drop fractions are held to
+   forward over the prompt (the same T: the same capacity, the same slots
+   dropped); where nothing is dropped (capacity factor E / top_k),
+   prefill and decode are held to forward over prompt and tokens. The f32
+   control within ``F32_PATH_BAR``; bf16 within twice the bf16 reach on
+   those choices (phase 13b's rule for two bf16 paths), so a lost cast, a
+   wrong expert weight or a wrong drop fails. Prints the cut, the peaks,
+   prefill s, decode ms a step, the drop fractions, the slots per expert
+   and the router inputs' mean cosine at prefill and, from
+   ``torch.profiler``, the device's share of the expert products, the
+   dispatch and the combine.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -248,6 +319,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -259,24 +331,28 @@ import torch  # noqa: E402
 
 from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
 from repro_torch.configs import kan_llm, kan_llm_int8  # noqa: E402
-from repro_torch.configs import mistral_nemo_12b  # noqa: E402
+from repro_torch.configs import mistral_nemo_12b, mixtral_8x7b  # noqa: E402
 from repro_torch.configs import recurrentgemma_2b  # noqa: E402
 from repro_torch.core import kan, kan_sam, quant, splines  # noqa: E402
 from repro_torch.data import cf_synth, lm_synth  # noqa: E402
 from repro_torch.examples import kan_neurosim_search  # noqa: E402
 from repro_torch.examples import serve_kan_llm, train_cf_kan  # noqa: E402
-from repro_torch.hw import chip, cim, tiles, variation  # noqa: E402
+from repro_torch.hw import chip, cim, health, tiles, variation  # noqa: E402
+from repro_torch.hw.health import ChipHealth  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import cim_mac as cim_kernels  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernels  # noqa: E402
+from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import cf_kan, layers  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import rglru as rglru_lib  # noqa: E402
 from repro_torch.models import ssd as ssd_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import EngineRecorder  # noqa: E402
 from repro_torch.serve import decode  # noqa: E402
 from repro_torch.serve.engine import Engine, synth_trace  # noqa: E402
+from repro_torch.serve.router import Router  # noqa: E402
 from repro_torch.tune import space  # noqa: E402
 
 PEAK_F32 = 67e12          # FLOP/s, H100 SXM, outside the tensor cores
@@ -353,6 +429,28 @@ ENGINE_KAN_TRACE = dict(n_requests=64, min_prompt=128, max_prompt=512,
 ENGINE_MAMBA = dict(n_slots=8, page_size=64, max_len=2112)
 ENGINE_MAMBA_TRACE = dict(n_requests=16, min_prompt=512, max_prompt=2048,
                           min_new=16, max_new=32, stagger=1, seed=0)
+# phase 14: (a) the router, 4 replicas of phase 13a's engine on the one card
+# sharing one deploy; a drain of replica 1 at tick 20; drift (replica, rate,
+# tau) on one replica, polled every 2 ticks at threshold 0.05; a profiler
+# window of 6 router ticks from tick 10. (b) the launcher's fleet path on
+# cim_tiled at 16 slots. (c) mixtral-8x7b: 2 prompts of 5120 (past its
+# window of 4096), at most this share of the card's memory (phase 10b's
+# mistral peaked at 87.8% of it)
+ROUTER_REPLICAS = 4
+ROUTER_ENGINE = dict(n_slots=16, page_size=64, max_len=704)
+ROUTER_TRACE = dict(n_requests=128, min_prompt=128, max_prompt=512,
+                    common_prefix=128, min_new=16, max_new=64, stagger=1,
+                    seed=0)
+ROUTER_DRAIN = (1, 20)
+ROUTER_DRIFT = (2, 0.05, 4.0)
+ROUTER_HEALTH = dict(poll_every=2, drift_threshold=0.05)
+ROUTER_PROFILE = (10, 6)
+LAUNCH_FLEET_SLOTS = 16
+MIXTRAL_BATCH, MIXTRAL_PROMPT = 2, 5120
+MIXTRAL_MEM_SHARE = 0.88
+# the depths whose peaks give the cut's linear fit (a single layer's stage
+# is not stacked, so its peaks sit off the line the deeper stages lie on)
+MIXTRAL_CALIB = (2, 3)
 
 
 def check(ok: bool, what: str) -> None:
@@ -552,17 +650,36 @@ def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size,
     ccfg = chip_cfg(array_size)
     tiled = chip.place_layer(codes, crit, ccfg, layer_uid=layer_uid)
     v = torch.where(tiled.valid, wl[:, tiled.logical_of_phys.long()], 0.0)
-    w, g = tiled.w_phys, tiled.gain
-    tile = ccfg.tile
-    att = tiles.slot_attenuation(v.shape[1], tile, v.device)
-    kw = dict(array_size=array_size, adc_bits=tile.adc_bits,
-              in_scale=tile.adc_in_scale)
-    got = ops.cim_mac_tiled(v, w, att, gain=g, **kw)
-    want = ref.cim_mac_tiled_ref(v, w, g, att, array_size, tile.adc_bits,
-                                 tile.adc_in_scale)
+    return cim_tiled_row(timer, label, v, tiled.w_phys, tiled.gain,
+                         ccfg.tile, array_size == SERVE_AS if on_path is None
+                         else on_path)
+
+
+def cim_tiled_held(label, v, w, g, att, tile):
+    """``cim_mac_tiled`` on physical-order WL values ``v`` [B, R], codes
+    ``w``, gains ``g`` (or None) and row attenuation ``att`` of ``tile``'s
+    geometry, against its plain version bit for bit. Returns both."""
+    got = ops.cim_mac_tiled(v, w, att, gain=g, array_size=tile.array_size,
+                            adc_bits=tile.adc_bits,
+                            in_scale=tile.adc_in_scale)
+    want = ref.cim_mac_tiled_ref(v, w, g, att, tile.array_size,
+                                 tile.adc_bits, tile.adc_in_scale)
     n_off = int((got != want).sum())
     check(n_off == 0, f"cim_mac_tiled {label}: {n_off} codes differ from "
           "the plain version")
+    return got, want
+
+
+def cim_tiled_row(timer, label, v, w, g, tile, on_path, att=None):
+    """``cim_tiled_held`` (``att`` by default the tile's slot attenuation),
+    then a second launch that must give the same codes; with its time and
+    bound."""
+    array_size = tile.array_size
+    if att is None:
+        att = tiles.slot_attenuation(v.shape[1], tile, v.device)
+    kw = dict(array_size=array_size, adc_bits=tile.adc_bits,
+              in_scale=tile.adc_in_scale)
+    got, want = cim_tiled_held(label, v, w, g, att, tile)
     # a second launch, which counts the (b, r) pairs it iterated
     counter = torch.zeros(1, dtype=torch.int64, device=v.device)
     lsb = array_size * tile.adc_in_scale / (2 ** tile.adc_bits - 1)
@@ -574,7 +691,8 @@ def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size,
     c = w.shape[1]
     mag = w.to(torch.int32).abs()
     popcount = sum(((mag >> k) & 1) for k in range(8)).sum(dim=1)   # [R]
-    nonzero = (w != 0).sum(dim=1)                                   # [R]
+    nonzero = ((w != 0).sum(dim=1) if g is not None
+               else torch.zeros_like(popcount))                     # [R]
     live = ((v * att) != 0).sum(dim=0)                              # [R]
     # per live (b, r): one add per set code bit and one gain multiply per
     # nonzero cell; the ADC's divide, round, shift and add per (b, tile, c,
@@ -582,8 +700,8 @@ def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size,
     per_row = (popcount + nonzero).to(torch.float64)
     flops = (float((live.to(torch.float64) * per_row).sum())
              + 4.0 * 8 * b * (r // array_size) * c + b * r)
-    n_bytes = (v.numel() * 4 + w.numel() + g.numel() * 4 + att.numel() * 4
-               + b * c * 4)
+    n_bytes = (v.numel() * 4 + w.numel() + att.numel() * 4 + b * c * 4
+               + (g.numel() * 4 if g is not None else 0))
     row = dict(shape=label, B=b, R=r, C=c, array_size=array_size,
                max_abs_err=float((got - want).abs().max()), codes_differing=0,
                ms=timer.ms(lambda: ops.cim_mac_tiled(v, w, att, gain=g, **kw),
@@ -592,8 +710,7 @@ def check_cim_mac_tiled(timer, label, wl, codes, layer_uid, array_size,
                    v, w, g, att, array_size, tile.adc_bits,
                    tile.adc_in_scale), reps=3, warmup=1),
                library_ms=None,
-               on_path=array_size == SERVE_AS if on_path is None else on_path,
-               rows_iterated=int(counter) / (b * r))
+               on_path=on_path, rows_iterated=int(counter) / (b * r))
     row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
     return row
 
@@ -1517,7 +1634,10 @@ SPANS = (("attention", attn_lib, "chunked_attention"),
          ("norm_unembed", tfm, "logits_from"),
          ("rglru", decode, "_rglru_prefill"),
          ("rglru", rglru_lib, "apply_rglru_block_decode"),
-         ("rglru_scan", rglru_lib, "rglru_scan"))
+         ("rglru_scan", rglru_lib, "rglru_scan"),
+         ("moe_dispatch", moe_lib, "_dispatch"),
+         ("moe_expert_products", moe_lib, "_expert_ffn"),
+         ("moe_combine", moe_lib, "_combine"))
 
 
 @contextlib.contextmanager
@@ -2110,23 +2230,29 @@ def tick_bytes(eng):
 
 
 @contextlib.contextmanager
-def engine_spies(eng, seen, on_chunk=None):
+def engine_spies(engines, seen, on_chunk=None):
     """While active: ``seen["decode"]`` and ``seen["chunks"]`` count the
-    engine's fused ticks and prefill chunks, ``seen["peak_ref"]`` holds the
-    largest page refcount after any tick; ``on_chunk(slot, last, cache)``
-    runs after each chunk."""
-    decode_fn, step_fn, chunk_fn = eng._decode, eng.step, decode.prefill_chunk
+    fused ticks and prefill chunks of every engine in ``engines``,
+    ``seen["peak_ref"]`` holds the largest page refcount of any engine after
+    any of its ticks; ``on_chunk(slot, last, cache)`` runs after each
+    chunk."""
+    saved = [(eng._decode, eng.step) for eng in engines]
+    chunk_fn = decode.prefill_chunk
     seen.update(decode=0, chunks=0, peak_ref=0)
 
-    def counted_decode(*args):
-        seen["decode"] += 1
-        return decode_fn(*args)
+    def counted_decode(fn):
+        def wrapped(*args):
+            seen["decode"] += 1
+            return fn(*args)
+        return wrapped
 
-    def tracked_step():
-        out = step_fn()
-        seen["peak_ref"] = max(seen["peak_ref"],
-                               int(eng.alloc.refcount.max()))
-        return out
+    def tracked_step(eng, fn):
+        def wrapped():
+            out = fn()
+            seen["peak_ref"] = max(seen["peak_ref"],
+                                   int(eng.alloc.refcount.max()))
+            return out
+        return wrapped
 
     def counted_chunk(params, cfg, cache, tokens, start, slot, pages_row,
                       **kw):
@@ -2136,14 +2262,49 @@ def engine_spies(eng, seen, on_chunk=None):
         if on_chunk is not None:
             on_chunk(slot, kw["last"], out[1])
         return out
-    eng._decode, eng.step, decode.prefill_chunk = (counted_decode,
-                                                   tracked_step,
-                                                   counted_chunk)
+    for eng, (decode_fn, step_fn) in zip(engines, saved):
+        eng._decode = counted_decode(decode_fn)
+        eng.step = tracked_step(eng, step_fn)
+    decode.prefill_chunk = counted_chunk
     try:
         yield
     finally:
-        eng._decode, eng.step = decode_fn, step_fn
+        for eng, (decode_fn, step_fn) in zip(engines, saved):
+            eng._decode, eng.step = decode_fn, step_fn
         decode.prefill_chunk = chunk_fn
+
+
+def device_busy_ms(prof):
+    """The device's busy time in a ``torch.profiler`` trace: every kernel
+    and copy, the spans' own device-side ranges left out."""
+    from torch.autograd import DeviceType
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
+def tick_window(step, warm, n_ticks):
+    """``step()`` ``warm`` times unprofiled, then ``n_ticks`` times under
+    ``torch.profiler``: the device's busy ms per tick and its idle share
+    of the window's host time (ending in a synchronize). Empty where the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy = device_busy_ms(prof)
+    if not busy:
+        return {}
+    return dict(ticks=n_ticks, device_ms_per_tick=busy / n_ticks,
+                wall_ms_per_tick=wall_ms / n_ticks,
+                idle_share=1 - busy / wall_ms)
 
 
 def engine_profile(params, cfg, trace, eng_kw, warm=10, n_ticks=6, reps=5):
@@ -2156,13 +2317,7 @@ def engine_profile(params, cfg, trace, eng_kw, warm=10, n_ticks=6, reps=5):
     engine is dropped after), for the device time per fused tick and per
     chunk.
     Empty where a trace holds no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_ms(prof):
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)) / 1e3
 
     eng = Engine(params, cfg, **eng_kw)
     for r in trace:
@@ -2180,24 +2335,11 @@ def engine_profile(params, cfg, trace, eng_kw, warm=10, n_ticks=6, reps=5):
         "prefill_chunk", saved[1], lambda a, k: not k["first"]
         and a[3].shape[1] == eng.chunk_tokens)
     try:
-        for _ in range(warm):
-            eng.step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_ticks):
-                eng.step()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
+        out = tick_window(eng.step, warm, n_ticks)
     finally:
         decode.decode_step, decode.prefill_chunk = saved
-    busy = device_ms(prof)
-    if not busy:
+    if not out:
         return {}
-    out = dict(ticks=n_ticks, device_ms_per_tick=busy / n_ticks,
-               wall_ms_per_tick=wall_ms / n_ticks,
-               idle_share=1 - busy / wall_ms)
     for name, fn in (("decode_tick", saved[0]), ("prefill_chunk", saved[1])):
         if name not in calls:
             out[f"device_ms_per_{name}"] = None
@@ -2213,7 +2355,7 @@ def engine_profile(params, cfg, trace, eng_kw, warm=10, n_ticks=6, reps=5):
             torch.cuda.synchronize()
             out[f"wall_ms_per_{name}"] = 1e3 * (time.perf_counter()
                                                 - t0) / reps
-        out[f"device_ms_per_{name}"] = device_ms(prof) / reps
+        out[f"device_ms_per_{name}"] = device_busy_ms(prof) / reps
     return out
 
 
@@ -2316,7 +2458,7 @@ def engine_kan_llm_phase(timer, dev):
         if backend == "fused":
             ops.kan_spline_fused_deployed = spy
         try:
-            with quantisation_poisoned(), engine_spies(eng, seen):
+            with quantisation_poisoned(), engine_spies([eng], seen):
                 ops.reset_launch_counts()
                 t0 = time.perf_counter()
                 comps = eng.run(trace())
@@ -2443,7 +2585,7 @@ def engine_mamba2_phase(timer, dev):
                       init_state=init_state)
     ops.ssd_state = spy
     try:
-        with engine_spies(eng, seen, on_chunk):
+        with engine_spies([eng], seen, on_chunk):
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             comps = eng.run(trace())
@@ -2512,6 +2654,639 @@ def engine_mamba2_phase(timer, dev):
                  f"{compared}, a tick moves {cache_b / 1e9:.2f} GB of cache "
                  f"and {weight_b / 1e9:.2f} GB of weights")
     return out, row, launches["ssd_scan"]
+
+
+# --- phase 14: the router, the launcher's fleet path, mixtral-8x7b ----------
+
+def pool_bytes(eng):
+    """Bytes of an engine's cache: its page pools and per-slot rows."""
+    return sum(t.element_size() * t.numel()
+               for t in tfm.tree_leaves(eng.cache))
+
+
+def tokens_until_tie(label, reqs, got, want, leads):
+    """Each request's tokens equal ``want``'s up to the first step whose
+    top-1 lead in ``leads`` is within ``F32_PATH_BAR`` (phase 10a's rule).
+    Returns the steps compared and the requests equal throughout."""
+    compared = identical = 0
+    for r in reqs:
+        cut = until_tie(leads[r.rid], F32_PATH_BAR)
+        check(got[r.rid][:cut] == want[r.rid][:cut],
+              f"{label}: request {r.rid} differs from the single engine "
+              f"before its first near tie at step {cut}")
+        compared += cut
+        identical += got[r.rid] == want[r.rid]
+    return compared, identical
+
+
+def router_phase(timer, dev):
+    """Phase 14a. Returns the metrics, the ``kan_fused`` rows at the tick's
+    shape and the ``kan_fused`` launches of the three runs."""
+    cfg = dataclasses.replace(kan_llm.CONFIG.model, kan_backend="fused")
+    params = tfm.init_model(0, cfg)
+    trace = lambda: synth_trace(cfg.vocab, **ROUTER_TRACE)  # noqa: E731
+    reqs = trace()
+    eng_kw = dict(ROUTER_ENGINE, device=dev)
+    n_rep = ROUTER_REPLICAS
+    # the single engine on the same trace: the reference for the fleets'
+    # tokens and the one-engine throughput their scaling is measured on;
+    # its deploy is the one every replica shares
+    single = Engine(params, cfg, recorder=EngineRecorder(), **eng_kw)
+    with quantisation_poisoned():
+        comps = single.run(trace())
+    torch.cuda.synchronize()
+    srep = single.stats.report()
+    check(len(comps) == len(reqs), f"router single engine: {len(comps)} of "
+          f"{len(reqs)} completed")
+    want = {c.rid: [int(t) for t in c.tokens] for c in comps}
+    leads = {}
+    with quantisation_poisoned():
+        for r in reqs:
+            prompt = torch.from_numpy(r.tokens.astype(np.int64)).to(dev)
+            full = torch.cat([prompt, torch.tensor(want[r.rid][:-1],
+                                                   device=dev)])[None]
+            lf, _ = tfm.forward(single.params, cfg, {"tokens": full})
+            top2 = torch.topk(lf[0, len(prompt) - 1:].float(), 2,
+                              dim=-1).values
+            leads[r.rid] = (top2[:, 0] - top2[:, 1]).tolist()
+    single_tps = srep["tokens_per_s"]
+    up, down = tfm.layer_of(single.params["stages"][0], 0)["l0"]["kan"].layers
+    asp_up, asp_down = cfg.kan_spec.asp
+    out = {"single": dict(report=srep)}
+    rows, launches_all, captured = [], 0, {}
+    codes_of = {up.codes.data_ptr(): "up", down.codes.data_ptr(): "down"}
+    fused_fn = ops.kan_spline_fused_deployed
+
+    def spy(x, codes, scale, asp, hemi=None):
+        name = codes_of.get(codes.data_ptr())
+        x2 = x.reshape(-1, x.shape[-1])
+        if (name and x2.shape[0] == ROUTER_ENGINE["n_slots"]
+                and name not in captured):
+            captured[name] = x2.clone()
+        return fused_fn(x, codes, scale, asp, hemi=hemi)
+
+    def fleet(run):
+        """The run's router over ``n_rep`` fresh replicas sharing the
+        single engine's deploy, and its health monitor (or None)."""
+        rec = EngineRecorder()
+        router = Router([Engine(single.params, cfg,
+                                recorder=rec.for_replica(i),
+                                **eng_kw).adopt_compiled(single)
+                         for i in range(n_rep)], recorder=rec)
+        if run == "drain":
+            router.schedule_drain(*ROUTER_DRAIN)
+        if run != "health":
+            return router, None
+        mon = router.enable_health(slos=serve_launch.lenient_slos,
+                                   **ROUTER_HEALTH)
+        for i in range(n_rep):
+            mon.attach_chip(i, ChipHealth(
+                tile=tiles.TileConfig(array_size=64, tile_cols=16),
+                drift=variation.DriftConfig(
+                    rate=ROUTER_DRIFT[1] if i == ROUTER_DRIFT[0] else 0.0,
+                    tau=ROUTER_DRIFT[2], seed=0),
+                geometry=health.ProbeGeometry(layer_uids=(0, 1),
+                                              tiles_per_layer=2),
+                registry=rec.metrics, labels={"replica": str(i)}))
+        return router, mon
+    for run in ("plain", "drain", "health"):
+        router, mon = fleet(run)
+        replicas = router.replicas
+        seen = {}
+        if run == "plain":
+            ops.kan_spline_fused_deployed = spy
+        try:
+            with quantisation_poisoned(), engine_spies(replicas, seen):
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                comps = router.run(trace())
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                launches = ops.launch_counts()
+        finally:
+            ops.kan_spline_fused_deployed = fused_fn
+        rep = router.report()
+        label = f"router {run}"
+        check_launches(label, launches, {"kan_fused": 2 * cfg.n_layers * (
+            seen["decode"] + seen["chunks"])})
+        launches_all += launches["kan_fused"]
+        got = {c.rid: [int(t) for t in c.tokens] for c in comps}
+        check(len(comps) == len(reqs) == rep["completed"] and sorted(got)
+              == sorted(r.rid for r in reqs), f"{label}: {len(comps)} of "
+              f"{len(reqs)} completed, {rep['completed']} counted")
+        check(all(len(got[r.rid]) == r.max_new for r in reqs),
+              f"{label}: a request stopped short")
+        check(sum(rep["routed"]) == len(reqs) + rep["requeued"],
+              f"{label}: routed {rep['routed']} vs {len(reqs)} requests + "
+              f"{rep['requeued']} requeued")
+        check(min(rep["routed"]) > 0 and rep["affinity_hits"] > 0,
+              f"{label}: routed {rep['routed']}, affinity hits "
+              f"{rep['affinity_hits']}")
+        for i, eng in enumerate(replicas):
+            eng.alloc.check()
+            check(eng.alloc.in_use == 0 and not eng.active.any(),
+                  f"{label}: replica {i} holds pages or slots after the run")
+        if run == "drain":
+            tick, idx = ROUTER_DRAIN[1], ROUTER_DRAIN[0]
+            check(rep["drains"] == 1 and rep["requeued"] > 0, f"{label}: "
+                  f"{rep['drains']} drains, {rep['requeued']} requeued")
+            late = [d for d in router.stats.dispatch_log
+                    if d[2] == idx and d[0] >= tick]
+            check(not late, f"{label}: {len(late)} dispatches to replica "
+                  f"{idx} after its drain")
+        if run == "health":
+            drained = [e for e in mon.events if e["action"] == "drained"]
+            check(rep["drained_for_health"] >= 1 and drained
+                  and drained[0]["replica"] == ROUTER_DRIFT[0],
+                  f"{label}: health events {mon.events}")
+            check(not all(router.draining), f"{label}: every replica is "
+                  "draining")
+        compared, identical = tokens_until_tie(label, reqs, got, want, leads)
+        if run == "plain":
+            out["pool_bytes"] = [pool_bytes(e) for e in replicas]
+        del router, replicas
+        # the device's share of the run's ticks: a second fleet set up the
+        # same way on the same trace, profiled over a window of its ticks
+        # (the measured run stays unprofiled)
+        prof_router, _ = fleet(run)
+        for r in trace():
+            prof_router.submit(r)
+        with quantisation_poisoned():
+            prof = tick_window(prof_router.step, *ROUTER_PROFILE)
+        del prof_router
+        fleet_sk = rep["fleet"]
+        agg = rep["agg_tokens_per_s"]
+        out[run] = dict(
+            report={k: v for k, v in rep.items() if k != "per_replica"},
+            run_s=run_s, launches=launches, decode_calls=seen["decode"],
+            chunk_calls=seen["chunks"], steps_compared=compared,
+            requests_identical=identical, profile=prof,
+            scaling_efficiency=agg / (n_rep * single_tps),
+            router_share=rep["router_s"] / rep["wall_s"],
+            health_events=(mon.events if run == "health" else None))
+        print(f"phase 14a {label}: {rep['completed']} requests over "
+              f"{n_rep} replicas, ticks {rep['ticks']}, agg_tokens_per_s "
+              f"{agg} (modeled: router_s + the slowest replica's busy_s), "
+              f"scaling efficiency {out[run]['scaling_efficiency']:.3f} "
+              f"against the single engine's {single_tps} tokens/s, router_s "
+              f"{rep['router_s']} s = {out[run]['router_share']:.4f} of wall "
+              f"{rep['wall_s']} s, busy_s {rep['busy_s']}, routed "
+              f"{rep['routed']}, affinity hits {rep['affinity_hits']}, "
+              f"fleet TTFT p50/p99 {fleet_sk['ttft_sketch']['p50']}/"
+              f"{fleet_sk['ttft_sketch']['p99']} s, TPOT p50/p99 "
+              f"{fleet_sk['tpot_sketch']['p50']}/"
+              f"{fleet_sk['tpot_sketch']['p99']} "
+              f"s, requeued {rep['requeued']}, drained "
+              f"{rep['drains']} (for health {rep['drained_for_health']}); "
+              f"launches {launches}; tokens equal to the single engine's "
+              f"through {compared} steps, {identical} of {len(reqs)} "
+              f"requests identical throughout; "
+              + (f"device {prof['device_ms_per_tick']:.4f} ms a tick of "
+                 f"{prof['wall_ms_per_tick']:.4f} (idle "
+                 f"{prof['idle_share']:.3f}) over {prof['ticks']} ticks "
+                 f"of a second fleet from tick {ROUTER_PROFILE[0]}"
+                 if prof else "tick profile: not measured (no device "
+                 "times in the trace)"))
+        if run == "plain":
+            out["param_bytes"] = sum(t.element_size() * t.numel() for t in
+                                     tfm.tree_leaves(single.params))
+            print(f"phase 14a pools: {out['pool_bytes']} bytes a replica "
+                  f"(one deploy shared: {out['param_bytes']} bytes of "
+                  "params)")
+    check(sorted(captured) == ["down", "up"], f"router: kan_fused inputs "
+          f"captured at the tick for {sorted(captured)}")
+    for name, layer, asp in (("up", up, asp_up), ("down", down, asp_down)):
+        x = captured[name]
+        rows.append(check_kan_fused(
+            timer, f"router tick {name} [{x.shape[0]}, {x.shape[1]}]", x,
+            layer, asp))
+        rows[-1]["on_path"] = False
+    print(f"phase 14a single engine: {srep['completed']} requests, "
+          f"{srep['ticks']} ticks, {single_tps} tokens/s, TTFT p50/p99 "
+          f"{srep['ttft_s']['p50']}/{srep['ttft_s']['p99']} s, TPOT p50/p99 "
+          f"{srep['tpot_s']['p50']}/{srep['tpot_s']['p99']} s")
+    return out, rows, launches_all
+
+
+def launcher_phase(timer, dev):
+    """Phase 14b. Returns the metrics, the ``cim_mac_tiled`` rows (one per
+    shape the run launched it at, in the tick and in prefills) and
+    the kernel's launches in the launcher's run."""
+    tiled_fn, step_fn = ops.cim_mac_tiled, decode.decode_step
+    rows_n, state = LAUNCH_FLEET_SLOTS, {"tick": False}
+    calls = {"tick": 0, "prefill": 0}
+    captured = {}   # (codes, rows, where) -> the first launch's inputs
+
+    def in_tick(*args, **kw):
+        state["tick"] = True
+        try:
+            return step_fn(*args, **kw)
+        finally:
+            state["tick"] = False
+
+    def spy(v, w_codes, row_atten, **kw):
+        where = "tick" if state["tick"] else "prefill"
+        calls[where] += 1
+        v2 = v.reshape(-1, v.shape[-1])
+        key = (w_codes.data_ptr(), v2.shape[0], where)
+        if key not in captured:
+            captured[key] = (v2.clone(), w_codes, row_atten.clone(),
+                             dict(kw))
+        return tiled_fn(v, w_codes, row_atten, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "metrics.json"
+        ops.cim_mac_tiled, decode.decode_step = spy, in_tick
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = serve_launch.main(
+                ["--arch", "kan_llm", "--kan-backend", "cim_tiled",
+                 "--replicas", "2", "--drift-replica", "1", "--check",
+                 "--slots", str(rows_n), "--requests", "32", "--stagger",
+                 "1", "--metrics-out", str(path)])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        finally:
+            ops.cim_mac_tiled, decode.decode_step = tiled_fn, step_fn
+        snap = json.loads(path.read_text())["metrics"]
+    check(launches["cim_mac_tiled"] == calls["tick"] + calls["prefill"]
+          and calls["tick"] > 0, f"launcher fleet: cim_mac_tiled launched "
+          f"{launches} times, {calls} in ticks and prefills")
+    check(launches["kan_fused"] == 0, f"launcher fleet: kan_fused launched "
+          f"{launches['kan_fused']} times on cim_tiled")
+    keys = list(snap)
+    chip_keys = [k for k in keys if k.startswith("chip_")
+                 and not k.startswith(("chip_layer_", "chip_canary",
+                                       "chip_adc"))]
+    layer_keys = [k for k in keys if k.startswith("chip_layer_")]
+    canary = {i: [k for k in keys if k.startswith("chip_canary_rel_dev{")
+                  and f'replica="{i}"' in k] for i in range(2)}
+    check(len(chip_keys) >= 7 and layer_keys and all(canary.values()),
+          f"launcher fleet: chip gauges {chip_keys}, layer gauges "
+          f"{len(layer_keys)}, canary gauges {canary}")
+    check(rep["drained_for_health"] >= 1, "launcher fleet: no health drain")
+    tile = kan_llm.CONFIG.model.kan_spec.cim
+    tile = (tile.tile if tile is not None else chip.ChipConfig().tile)
+    # every (layer, rows) input the run gave the kernel, on its own
+    # attenuation and gains, bit for bit; each shape timed once
+    rows, timed = [], set()
+    for (_, n, where), (v, w, att, kw) in captured.items():
+        check(set(kw) <= {"gain", "array_size", "adc_bits", "in_scale"}
+              and (kw["array_size"], kw["adc_bits"], kw["in_scale"])
+              == (tile.array_size, tile.adc_bits, tile.adc_in_scale),
+              f"launcher fleet: the kernel's settings "
+              f"{ {k: v for k, v in kw.items() if k != 'gain'} } are not "
+              f"the tile's {tile}")
+        shape = (where, n, v.shape[1], w.shape[1])
+        label = f"launcher {where} [{n}, {v.shape[1]}] -> {w.shape[1]}"
+        if shape in timed:
+            cim_tiled_held(label, v, w, kw.get("gain"), att, tile)
+            continue
+        timed.add(shape)
+        rows.append(cim_tiled_row(timer, label, v, w, kw.get("gain"), tile,
+                                  False, att=att))
+    tick_shapes = sorted((r["R"], r["C"]) for r in rows
+                         if r["shape"].startswith("launcher tick"))
+    check(len(tick_shapes) == 2 and all(
+        r["B"] == rows_n for r in rows if r["shape"].startswith(
+            "launcher tick")), f"launcher fleet: tick shapes {tick_shapes}")
+    out = dict(report={k: v for k, v in rep.items() if k != "per_replica"},
+               run_s=run_s, launches=launches, tick_launches=calls["tick"],
+               prefill_launches=calls["prefill"],
+               inputs_held=len(captured),
+               shapes_timed=len(rows),
+               chip_gauges=len(chip_keys) + len(layer_keys),
+               canary_gauges={i: len(c) for i, c in canary.items()})
+    print(f"phase 14b launcher fleet (kan_llm on cim_tiled, 2 replicas, "
+          f"drift on 1): --check passed in {run_s:.2f} s; cim_mac_tiled "
+          f"launched {launches['cim_mac_tiled']} times, {calls['tick']} in "
+          f"the tick at {rows_n} rows and {calls['prefill']} in "
+          f"prefills; {len(captured)} distinct (layer, rows) inputs held bit "
+          f"for bit, {len(rows)} shapes timed; {len(chip_keys)} chip and "
+          f"{len(layer_keys)} chip_layer gauges, canary gauges per replica "
+          f"{out['canary_gauges']}; drained for health "
+          f"{rep['drained_for_health']}, requeued {rep['requeued']}")
+    return out, rows, launches["cim_mac_tiled"]
+
+
+def mixtral_cfg(n_layers):
+    return dataclasses.replace(mixtral_8x7b.CONFIG.model, n_layers=n_layers)
+
+
+@contextlib.contextmanager
+def peak_of(peaks, name):
+    """``peaks[name]``: the most memory allocated on the card (GB) while
+    the block ran."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+
+
+class MoELog(list):
+    """``moe_watch``'s record of MoE calls, in order; ``choices``: each
+    layer's top-k experts per token over its calls."""
+    choices = None
+
+
+@contextlib.contextmanager
+def moe_watch(n_layers, record=None):
+    """While active, every ``apply_moe`` call appends to the yielded
+    ``log`` its layer (the layers are called in turn), tokens T, the
+    experts' slot counts (``bincount`` of the top-k choices), its
+    ``moe_drop_frac`` and the router input's token alikeness
+    (``|mean of the unit rows|^2``, the mean cosine over token pairs).
+    With ``record`` None the top-k choices are made as always and each
+    layer's are kept in ``log.choices``; given a record (another run's
+    ``choices``), each layer's call takes the next rows of its record,
+    with the weights from its own probabilities, so that paths on the same
+    tokens route them to the same experts."""
+    top_fn, apply_fn = moe_lib.top_k, moe_lib.apply_moe
+    log, state = MoELog(), {"calls": 0, "idx": None}
+    log.choices = [[] for _ in range(n_layers)]
+    pos = [0] * n_layers
+
+    def pick(probs, k):
+        layer = state["calls"] % n_layers
+        if record is None:
+            vals, idx = top_fn(probs, k)
+            log.choices[layer].append(idx)
+        else:
+            t = probs.shape[0]
+            idx = record[layer][pos[layer]:pos[layer] + t]
+            check(idx.shape[0] == t, f"moe replay: layer {layer} has no "
+                  f"choices left for {t} tokens at {pos[layer]}")
+            pos[layer] += t
+            vals = probs.gather(-1, idx)
+        state["idx"] = idx
+        return vals, idx
+
+    def watched(params, x, mcfg, **kw):
+        y, aux = apply_fn(params, x, mcfg, **kw)
+        u = torch.nn.functional.normalize(
+            x.reshape(-1, x.shape[-1]).float(), dim=-1)
+        log.append(dict(layer=state["calls"] % n_layers, T=u.shape[0],
+                        counts=torch.bincount(state["idx"].reshape(-1),
+                                              minlength=mcfg.n_experts),
+                        drop=aux["moe_drop_frac"],
+                        alike=(u.mean(0) ** 2).sum()))
+        state["calls"] += 1
+        return y, aux
+    moe_lib.top_k, moe_lib.apply_moe = pick, watched
+    try:
+        yield log
+    finally:
+        moe_lib.top_k, moe_lib.apply_moe = top_fn, apply_fn
+        log.choices = [torch.cat(c) if c else None for c in log.choices]
+
+
+def check_drops(label, log, mcfg):
+    """Each call's ``moe_drop_frac`` is the share of slots past capacity
+    that its expert counts give, the capacity ``max(1, int(T * top_k *
+    capacity_factor / E))`` worked out here; returns the largest
+    difference (f32 rounding of the kept mean)."""
+    worst = 0.0
+    for c in log:
+        t = c["T"]
+        cap = max(1, int(t * mcfg.top_k * mcfg.capacity_factor
+                         / mcfg.n_experts))
+        kept = int(torch.clamp(c["counts"], max=cap).sum())
+        want = 1.0 - kept / (t * mcfg.top_k)
+        err = abs(float(c["drop"]) - want)
+        check(err <= 2 ** -20, f"{label}: layer {c['layer']} at T {t} drops "
+              f"{float(c['drop']):.7f} of its slots, its counts "
+              f"{c['counts'].tolist()} at capacity {cap} give {want:.7f}")
+        worst = max(worst, err)
+    return worst
+
+
+def replayed(params, cfg, prompt, toks, record):
+    """One prompt's prefill (last logits) and, for ``toks`` [1, n], its
+    n - 1 decode steps, on ``record``'s top-k choices; the drop fractions
+    of the calls, in order."""
+    s = prompt.shape[1]
+    n = toks.shape[1] if toks is not None else 1
+    with moe_watch(cfg.n_layers, record) as log:
+        lp, cache = decode.prefill(params, cfg, {"tokens": prompt}, s + n,
+                                   last_only=True)
+        steps = []
+        for i in range(n - 1):
+            ld, cache = decode.decode_step(params, cache, toks[:, i:i + 1],
+                                           s + i, cfg)
+            steps.append(ld[:, 0])
+    del cache
+    return (lp[:, -1], torch.stack(steps, dim=1) if steps else None,
+            [float(c["drop"]) for c in log])
+
+
+def forward_routed(params, cfg, tokens, record=None):
+    """``forward``'s logits over ``tokens``, timed, recording its top-k
+    choices (``record`` None) or on ``record``'s. Returns the logits, the
+    choices, the calls' drop fractions and the seconds."""
+    with moe_watch(cfg.n_layers, record) as log:
+        t0 = time.perf_counter()
+        lf, _ = tfm.forward(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(lf).all()), f"{cfg.name} forward over "
+          f"{tokens.shape[1]} tokens not finite")
+    return lf, log.choices, [float(c["drop"]) for c in log], fwd_s
+
+
+def mixtral_path(cfg, prompt, profile=False):
+    """Phase 14c on ``cfg``: ``generate`` at the config's settings (both
+    prompts routed together at capacity factor 1.25) with every MoE call's
+    drop fraction held to its expert counts (``check_drops``); its prefill
+    and decode steps timed (they must repeat generate); the ring cache;
+    then each prompt alone through forward, prefill and decode on the top-k
+    choices of forward's bf16 run, so that all paths route each token to
+    the same experts: at capacity factor 1.25 the prefill's last logits and
+    drop fractions against forward over the prompt (the same T, so the
+    same capacity and the same slots dropped), and where nothing is
+    dropped (capacity factor E / top_k) prefill and decode against forward
+    over prompt and tokens; bf16 within twice the bf16 reach on those
+    choices (phase 13b's rule for two bf16 paths), the f32 control within
+    ``F32_PATH_BAR``. With ``profile``, a profiler breakdown of one prefill
+    and three decode steps. Returns the metrics, with each part's peak
+    memory."""
+    peaks = {}
+    with peak_of(peaks, "init"):
+        params = tfm.init_model(0, cfg)
+    n_params = tfm.count_params(params)
+    want_n = tfm.count_params(tfm.init_model(0, cfg, device="meta"))
+    check(n_params == want_n, f"mixtral at {cfg.n_layers} layers has "
+          f"{n_params:,} parameters, not {want_n:,}")
+    mcfg = cfg.moe_cfg
+    with moe_watch(cfg.n_layers) as log, peak_of(peaks, "generate"):
+        t0 = time.perf_counter()
+        toks = decode.generate(params, cfg, prompt, n_new=LM_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    b, s = prompt.shape
+    check(toks.shape == (b, LM_NEW) and bool(((toks >= 0)
+                                             & (toks < cfg.vocab)).all()),
+          f"mixtral generate gave {tuple(toks.shape)} or tokens out of the "
+          "vocabulary")
+    check(len(log) == LM_NEW * cfg.n_layers, f"mixtral generate: "
+          f"{len(log)} MoE calls, not {LM_NEW} x {cfg.n_layers}")
+    drop_err = check_drops("mixtral generate", log, mcfg)
+    drops = torch.tensor([float(c["drop"]) for c in log]).reshape(
+        LM_NEW, cfg.n_layers)
+    prefill_calls = log[:cfg.n_layers]
+    with peak_of(peaks, "served_steps"):
+        t0 = time.perf_counter()
+        lp, cache = decode.prefill(params, cfg, {"tokens": prompt},
+                                   s + LM_NEW, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step_ms, step_tok = [], []
+        for i in range(LM_NEW - 1):
+            t0 = time.perf_counter()
+            ld, cache = decode.decode_step(params, cache, toks[:, i:i + 1],
+                                           s + i, cfg)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            step_tok.append(torch.argmax(ld[:, 0], -1))
+    check(torch.equal(torch.argmax(lp[:, -1], -1), toks[:, 0])
+          and torch.equal(torch.stack(step_tok, 1), toks[:, 1:]),
+          "mixtral: the timed prefill and decode steps do not repeat "
+          "generate")
+    del lp, ld, cache
+    # the rolling cache: window slots, each written
+    _, cache = decode.prefill(params, cfg, {"tokens": prompt[:1]},
+                              s + LM_NEW, last_only=True)
+    k_ring = cache[0]["l0"]["k"]
+    ring = int(k_ring.shape[-3])
+    written = bool((k_ring.abs().flatten(-2).amax(-1) > 0).all())
+    check(ring == cfg.window and written, f"mixtral: the ring cache holds "
+          f"{ring} slots (window {cfg.window}), every one written: "
+          f"{written}")
+    del cache, k_ring
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    agree, fwd_s = {}, []
+    for i in range(b):
+        p1, t1 = prompt[i:i + 1], toks[i:i + 1]
+        full = torch.cat([p1, t1[:, :-1].to(p1.dtype)], dim=1)
+        for tag, c, tokens, t_dec in (("cf1.25", cfg, p1, None),
+                                      ("nodrop", nd, full, t1)):
+            c32 = dataclasses.replace(c, dtype=torch.float32)
+            with peak_of(peaks, f"bf16_{tag}_{i}"):
+                lf, rec, drops_f, secs = forward_routed(params, c, tokens)
+                lp, ld, drops_p = replayed(params, c, p1, t_dec, rec)
+            fwd_s.append(secs)
+            with peak_of(peaks, f"f32_{tag}_{i}"):
+                lf32, _, _, _ = forward_routed(params, c32, tokens, rec)
+                lp32, ld32, _ = replayed(params, c32, p1, t_dec, rec)
+            reach = float((lf.float() - lf32).abs().max())
+            label = f"{tag}_{i}"
+            if t_dec is None:
+                # the prompt's last position; the same T, so the same
+                # capacity and, on the same choices, the same slots dropped
+                check(drops_p == drops_f, f"mixtral {label}: prefill drops "
+                      f"{drops_p}, forward {drops_f}")
+                for name, a, bb, bar in (
+                        ("f32", lp32, lf32[:, -1], F32_PATH_BAR),
+                        ("bf16", lp, lf[:, -1], 2 * reach)):
+                    err = float((a.float() - bb.float()).abs().max())
+                    check(err <= bar, f"mixtral {name}_{label}: prefill vs "
+                          f"forward logits differ by {err:.3g} > {bar:.3g}")
+                    agree[f"{name}_{label}_prefill_vs_forward_max_abs"] = err
+                    agree[f"{name}_{label}_bar"] = bar
+                agree[f"{label}_drop_frac"] = drops_f
+            else:
+                agree.update(paths_agree(f"f32_{label}", lp32, ld32, lf32,
+                                         F32_PATH_BAR))
+                agree.update(paths_agree(f"bf16_{label}", lp, ld, lf,
+                                         2 * reach))
+            agree[f"bf16_{label}_reach"] = reach
+            del lf, lf32, lp, lp32, ld, ld32, rec
+    out = dict(
+        layers=cfg.n_layers, params=n_params, generate_s=gen_s,
+        prefill_s=prefill_s, decode_ms_median=float(np.median(step_ms)),
+        decode_ms_all=[round(t, 3) for t in step_ms],
+        forward_s_per_prompt=fwd_s, forward_T=s + LM_NEW - 1,
+        drop_frac_prefill=[round(float(d), 6) for d in drops[0]],
+        drop_vs_counts_max_abs=drop_err,
+        expert_counts_prefill=[c["counts"].tolist() for c in prefill_calls],
+        router_input_alike_prefill=[round(float(c["alike"]), 4)
+                                    for c in prefill_calls],
+        decode_steps_dropping=int((drops[1:] > 0).any(dim=1).sum()),
+        decode_drop_frac_mean=float(drops[1:].mean()),
+        ring_slots=ring, peaks_gb=peaks, peak_gb=max(peaks.values()),
+        **agree)
+    if profile:
+        out["profile"] = serve_profile(params, cfg, prompt, toks)
+    return out
+
+
+def mixtral_phase(dev):
+    """Phase 14c: mixtral-8x7b at full width over the deepest cut of its
+    32 layers that fits: the phase's path at the ``MIXTRAL_CALIB`` depths
+    gives each part's measured peak and its growth per layer, and the cut
+    is the most layers whose every part's extrapolated peak stays under
+    ``MIXTRAL_MEM_SHARE`` of the card."""
+    data = lm_synth.batch_at(lm_synth.LMDataConfig(
+        vocab=mixtral_8x7b.CONFIG.model.vocab, batch=MIXTRAL_BATCH,
+        seq_len=MIXTRAL_PROMPT, seed=0), 0)
+    prompt = torch.from_numpy(data["tokens"]).to(dev)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    calib = {}
+    n0, n1 = MIXTRAL_CALIB
+    for n in (n0, n1):
+        torch.cuda.empty_cache()
+        calib[n] = mixtral_path(mixtral_cfg(n), prompt)["peaks_gb"]
+    slope = {k: (calib[n1][k] - calib[n0][k]) / (n1 - n0) for k in calib[n0]}
+
+    def peak_at(n):
+        return max(calib[n0][k] + slope[k] * (n - n0) for k in slope)
+    cut = mixtral_8x7b.CONFIG.model.n_layers
+    while cut > n1 and peak_at(cut) > MIXTRAL_MEM_SHARE * card_gb:
+        cut -= 1
+    predicted = peak_at(cut)
+    torch.cuda.empty_cache()
+    cfg = mixtral_cfg(cut)
+    t0 = time.perf_counter()
+    metrics = mixtral_path(cfg, prompt, profile=True)
+    metrics.update(calibration_peaks_gb=calib, predicted_peak_gb=predicted,
+                   card_gb=card_gb, path_s=time.perf_counter() - t0)
+    print_profile("phase 14c mixtral-8x7b", metrics["profile"],
+                  metrics["decode_ms_median"])
+    shares = {}
+    for what in ("prefill", "decode_step"):
+        p = metrics["profile"].get(what)
+        if p:
+            shares[what] = {k: round(p["span_ms"].get(k, 0.0)
+                                     / p["device_ms"], 4)
+                            for k in ("moe_expert_products", "moe_dispatch",
+                                      "moe_combine")}
+    metrics["moe_device_shares"] = shares
+    print(f"phase 14c mixtral-8x7b: {cut} of its "
+          f"{mixtral_8x7b.CONFIG.model.n_layers} layers "
+          f"({metrics['params']:,} parameters; d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, d_ff {cfg.moe_d_ff}, window {cfg.window}, "
+          f"capacity factor {cfg.capacity_factor}); largest part peak at "
+          f"{n0} and {n1} layers {max(calib[n0].values()):.2f} and "
+          f"{max(calib[n1].values()):.2f} GB, predicted at {cut} layers "
+          f"{predicted:.2f}, measured {metrics['peak_gb']:.2f} GB of the "
+          f"card's {card_gb:.2f}; prefill {MIXTRAL_BATCH}x{MIXTRAL_PROMPT} "
+          f"{metrics['prefill_s']:.3f} s, decode "
+          f"{metrics['decode_ms_median']:.2f} ms a step, forward "
+          f"(one prompt) T={metrics['forward_T']} "
+          f"{metrics['forward_s_per_prompt'][-1]:.3f} s; moe_drop_frac per "
+          f"layer at prefill {metrics['drop_frac_prefill']} (held to the "
+          f"expert counts within {metrics['drop_vs_counts_max_abs']:.3g} "
+          f"at every call), slots per expert at prefill "
+          f"{metrics['expert_counts_prefill']}, router inputs' mean cosine "
+          f"{metrics['router_input_alike_prefill']}; decode steps dropping "
+          f"a slot "
+          f"{metrics['decode_steps_dropping']} of {LM_NEW - 1}; device "
+          f"shares of the MoE parts {shares}")
+    return metrics
 
 
 def main() -> int:
@@ -2852,6 +3627,33 @@ def main() -> int:
           f"{srow13['bound_tf32_ms']:.4f})")
     print("phase 13b: " + json.dumps(eng13b))
     print(f"phase 13b: {time.perf_counter() - t0:.1f} s")
+
+    # 14. the router over kan_llm on fused (plain, drain, health-drain), the
+    # launcher's fleet path on cim_tiled, mixtral-8x7b over a measured cut
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r14a, krows14, launches14a = router_phase(timer, dev)
+    rows["kan_fused"].extend(krows14)
+    launches["kan_fused"] += launches14a
+    print("phase 14a: " + json.dumps(r14a))
+    print(f"phase 14a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r14b, crows14, launches14b = launcher_phase(timer, dev)
+    rows["cim_mac_tiled"].extend(crows14)
+    launches["cim_mac_tiled"] += launches14b
+    print("phase 14b: " + json.dumps(r14b))
+    print(f"phase 14b: {time.perf_counter() - t0:.1f} s")
+    for r in krows14 + crows14:
+        print(f"kernel {'cim_mac_tiled' if 'R' in r else 'kan_fused'} "
+              f"{r['shape']}: max|err| {r['max_abs_err']:.3g}, "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r14c = mixtral_phase(dev)
+    print("phase 14c: " + json.dumps(r14c))
+    print(f"phase 14c: {time.perf_counter() - t0:.1f} s")
 
     # result lines
     kernels = []

@@ -27,10 +27,10 @@ ARCH_IDS = [
 AUX_ARCH_IDS = ["kan_llm", "kan_llm_int8"]
 # the LM archs whose every layer is ported
 PORTED = ("mamba2_1p3b", "mistral_nemo_12b", "phi3_medium_14b", "qwen2_72b",
-          "nemotron_4_340b", "recurrentgemma_2b", "kan_llm", "kan_llm_int8")
+          "nemotron_4_340b", "recurrentgemma_2b", "mixtral_8x7b",
+          "kimi_k2_1t_a32b", "kan_llm", "kan_llm_int8")
 # the others, and the ROADMAP slice that ports them
-LATER = {"mixtral_8x7b": "D4 (MoE)", "kimi_k2_1t_a32b": "D4 (MoE)",
-         "whisper_base": "D6 (encoder-decoder, cross attention)",
+LATER = {"whisper_base": "D6 (encoder-decoder, cross attention)",
          "internvl2_76b": "D6 (the vision stub)"}
 
 

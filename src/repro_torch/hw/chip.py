@@ -12,10 +12,8 @@ programmed WHERE — the paper's sparsity-aware mapping at chip scale:
   most critical land nearest that tile's clamp (attenuation resets at tile
   boundaries, so the sort is per tile).
 * **Roll-up** — tiles allocated/used, utilisation, and area/power/latency
-  via the calibrated ``hw.cost_model`` scale model.
-
-``publish_report`` (chip gauges in an ``obs`` metrics registry) waits for
-the port of ``obs``.
+  via the calibrated ``hw.cost_model`` scale model; ``publish_report``
+  writes it as gauges into an ``obs`` metrics registry.
 """
 from __future__ import annotations
 
@@ -179,10 +177,21 @@ def layer_report(tiled: TiledLayer, out_dim: int, cfg: ChipConfig) -> Dict:
     }
 
 
+def _repeat(tiled: TiledLayer, r: int) -> TiledLayer:
+    """Repeat ``r`` of a stacked stage's placement."""
+    return dataclasses.replace(tiled, **{
+        f.name: getattr(tiled, f.name)[r] for f in dataclasses.fields(tiled)
+        if getattr(tiled, f.name) is not None})
+
+
 def chip_report(deployed, cfg: Optional[ChipConfig] = None) -> Dict:
     """Whole-chip roll-up for a ``cim_tiled``-deployed KAN: per-layer
     placement plus chip totals and the calibrated area/power/latency scale
-    model of the placed parameters."""
+    model of the placed parameters. The artifact of a stacked stage (its
+    tensors carry a leading repeat axis, ``transformer.deploy_kan``) is
+    reported repeat by repeat, its layers named ``{name}.{repeat}``; the
+    reference reads such an artifact as one flat layer, which gives
+    negative empty-row counts."""
     spec = deployed.spec
     if cfg is None:
         cfg = spec.cim if spec.cim is not None else ChipConfig()
@@ -192,7 +201,13 @@ def chip_report(deployed, cfg: Optional[ChipConfig] = None) -> Dict:
             raise ValueError(f"layer {i} carries no tiled placement "
                              "(was this deployed with backend='cim_tiled'?)")
         name = spec.names[i] if spec.names else f"l{i}"
-        layers[name] = layer_report(layer.tiles, spec.layer(i).out_dim, cfg)
+        out_dim = spec.layer(i).out_dim
+        if layer.tiles.w_phys.ndim == 3:
+            for r in range(layer.tiles.w_phys.shape[0]):
+                layers[f"{name}.{r}"] = layer_report(
+                    _repeat(layer.tiles, r), out_dim, cfg)
+        else:
+            layers[name] = layer_report(layer.tiles, out_dim, cfg)
     alloc = sum(l["tiles_allocated"] for l in layers.values())
     used = sum(l["tiles_used"] for l in layers.values())
     params = sum(l["params_placed"] for l in layers.values())
@@ -210,3 +225,29 @@ def chip_report(deployed, cfg: Optional[ChipConfig] = None) -> Dict:
         "latency_ns": cost.latency_ns,
         "energy_nj": cost.energy_nj,
     }
+
+
+def publish_report(report: Dict, registry, *, prefix: str = "chip") -> None:
+    """Publish a ``chip_report()`` roll-up into a ``repro_torch.obs``
+    MetricsRegistry (duck-typed: anything with ``gauge(name, help,
+    labels)``), so one ``obs`` snapshot describes serving latency AND the
+    chip placement it runs on. Chip totals become plain gauges; per-layer
+    placement stats become ``chip_layer_*`` gauges labeled by layer name."""
+    totals = {
+        "tiles_allocated": "tiles allocated across all layers",
+        "tiles_used": "tiles actually programmed (after compaction)",
+        "utilization": "placed params / programmed cells",
+        "area_mm2": "cost-model area",
+        "power_w": "cost-model power",
+        "latency_ns": "cost-model latency",
+        "energy_nj": "cost-model energy",
+    }
+    for key, help_ in totals.items():
+        registry.gauge(f"{prefix}_{key}", help_).set(float(report[key]))
+    for name, layer in report["layers"].items():
+        labels = {"layer": name}
+        for key in ("tiles_allocated", "tiles_used", "rows_placed",
+                    "rows_empty", "utilization", "params_placed"):
+            registry.gauge(f"{prefix}_layer_{key}",
+                           f"per-layer {key.replace('_', ' ')}",
+                           labels=labels).set(float(layer[key]))

@@ -1,5 +1,5 @@
 """Serving launcher (port of ``repro.launch.serve``): a thin driver over the
-continuous-batching engine.
+continuous-batching engine and the multi-replica router.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_1p3b \
         --smoke --requests 8 [--device cpu]
@@ -8,6 +8,23 @@ It builds params from ``--seed``, synthesizes a staggered-arrival trace,
 runs ``repro_torch.serve.engine.Engine`` and prints the EngineStats report.
 Without ``--device`` it runs on the card and raises if there is none.
 
+``--replicas N`` serves the trace through ``repro_torch.serve.router``
+instead: N engines on the one device share replica 0's deployed params (a
+KAN deploy runs once) and ``adopt_compiled`` its profiler state; the router
+owns the global queue, scores load and prefix affinity per dispatch, and
+prints the RouterStats aggregate (its ``agg_tokens_per_s`` is the
+reference's modeled-concurrent throughput: the replicas are stepped one
+after the other). ``--drain-tick T`` schedules a drain of
+``--drain-replica`` at tick T: its in-flight requests requeue onto the
+others, and ``--check`` still requires every request to complete.
+``--drift-replica I --drift-rate R`` attaches a ``hw.health.ChipHealth``
+canary probe to every replica, with conductance drift in replica I only;
+the router's HealthMonitor polls canary deviation and SLO burn every
+``--health-poll`` ticks and drains the degraded replica once the deviation
+crosses ``--health-threshold``. Under ``--check`` that run must show a
+health drain, no lost request and the completion tokens of a healthy
+single engine on the same trace.
+
 ``--check`` is the smoke gate: it plants an EOS on request 0 (probed from
 an identical engine, so the request genuinely stops early), then asserts
 slot reuse, at least one EOS eviction and that every request completed;
@@ -15,14 +32,15 @@ any violation exits non-zero.
 
 Observability: ``--trace-out FILE`` / ``--metrics-out FILE`` run the engine
 with a recording ``repro_torch.obs.EngineRecorder`` and write a Chrome
-``trace_event`` JSON and an ``obs/v1`` snapshot. ``--metrics-port P``
-serves the live registry over HTTP during the run (``P=0``: an ephemeral
-port, self-scraped at the end; under ``--check`` the scrape must equal
-``exposition()``); ``--snapshot-out FILE`` writes periodic snapshots.
+``trace_event`` JSON and an ``obs/v1`` snapshot (with chip placement
+gauges from ``hw.chip.publish_report`` for ``cim_tiled``).
+``--metrics-port P`` serves the live registry over HTTP during the run
+(``P=0``: an ephemeral port, self-scraped at the end; under ``--check``
+the scrape must equal ``exposition()``); ``--snapshot-out FILE`` writes
+periodic snapshots.
 
-The router's flags (``--replicas``, ``--drain-*``, ``--drift-*``,
-``--health-*``) and ``--mesh-model`` are accepted for the reference's
-command lines and raise, naming the ROADMAP slice that brings them.
+``--mesh-model`` is accepted for the reference's command lines and raises,
+naming the ROADMAP slice that brings it.
 """
 import argparse
 import dataclasses
@@ -32,24 +50,62 @@ import sys
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.models import transformer as tfm
-from repro_torch.serve.engine import ROUTER_SLICE, Engine, synth_trace
+from repro_torch.serve.engine import Engine, synth_trace
 from repro_torch.serve.scheduler import AdmissionQueue, Request
 
 MESH_SLICE = "ROADMAP Slice F (distribution)"
 
 
-def _not_ported(args) -> None:
-    """Raise for a flag of a later slice that was given a value."""
-    later = [("--replicas", args.replicas != 1, ROUTER_SLICE),
-             ("--drain-tick", args.drain_tick != 0, ROUTER_SLICE),
-             ("--drift-replica", args.drift_replica != -1, ROUTER_SLICE),
-             ("--health-threshold", args.health_threshold is not None,
-              ROUTER_SLICE),
-             ("--health-poll", args.health_poll is not None, ROUTER_SLICE),
-             ("--mesh-model", args.mesh_model != 0, MESH_SLICE)]
-    for flag, given, where in later:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet: {where}")
+def _check_flags(args) -> None:
+    """The reference's argument errors, then the one flag of a later
+    slice."""
+    if args.replicas > 1 and args.mesh_model:
+        raise SystemExit("--replicas and --mesh-model are mutually "
+                         "exclusive: a router replica holds the whole "
+                         "model on its own device(s)")
+    if args.drift_replica >= 0 and not (0 <= args.drift_replica
+                                        < args.replicas and
+                                        args.replicas > 1):
+        raise SystemExit("--drift-replica needs the router path: require "
+                         "--replicas > 1 and 0 <= drift-replica < replicas")
+    if args.mesh_model:
+        raise NotImplementedError(f"--mesh-model is not ported yet: "
+                                  f"{MESH_SLICE}")
+
+
+def lenient_slos():
+    """The SLOs of a health run: latency bars no host-clock TTFT or TPOT of
+    a smoke or host-bound run reaches, so that only drift drains a replica
+    (a healthy replica drained for jitter would make the token check
+    meaningless)."""
+    from repro_torch.obs.slo import default_serving_slos
+    return default_serving_slos(ttft_s=120.0, tpot_s=60.0,
+                                queue_wait_ticks=1e9)
+
+
+def _publish_chip(params, registry) -> None:
+    """Chip placement gauges for every ``cim_tiled`` artifact in
+    ``params``, in the registry that holds the serving metrics: one
+    snapshot for the whole stack (``chip_*``, or ``chip{i}_*`` when the
+    model holds several artifacts)."""
+    from repro_torch.core import kan as kanlib
+    from repro_torch.hw import chip as chip_lib
+    deployed = []
+
+    def walk(tree):
+        if isinstance(tree, kanlib.DeployedKAN):
+            deployed.append(tree)
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+    walk(params)
+    for i, d in enumerate(deployed):
+        prefix = "chip" if len(deployed) == 1 else f"chip{i}"
+        chip_lib.publish_report(chip_lib.chip_report(d), registry,
+                                prefix=prefix)
 
 
 def main(argv=None) -> dict:
@@ -76,6 +132,17 @@ def main(argv=None) -> dict:
                          "trace (prefix-page sharing on pure attention)")
     ap.add_argument("--queue-cap", type=int, default=0,
                     help="bounded admission queue (0 = unbounded)")
+    ap.add_argument("--mesh-model", type=int, default=0,
+                    help="the reference's host mesh: not ported (raises)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through the multi-replica router with this "
+                         "many engines (1 = a single engine; incompatible "
+                         "with --mesh-model)")
+    ap.add_argument("--drain-tick", type=int, default=0,
+                    help="router path only: schedule a drain of "
+                         "--drain-replica at this tick (0 = no drain)")
+    ap.add_argument("--drain-replica", type=int, default=1,
+                    help="replica index --drain-tick evacuates")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kan-backend", default="",
                     help="override ModelConfig.kan_backend for KAN-FFN "
@@ -98,17 +165,20 @@ def main(argv=None) -> dict:
                          "path during the run; enables recording")
     ap.add_argument("--snapshot-every", type=float, default=1.0,
                     help="seconds between periodic snapshots")
-    # the reference's router and mesh flags: a later slice each
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--drain-tick", type=int, default=0)
-    ap.add_argument("--drain-replica", type=int, default=1)
-    ap.add_argument("--drift-replica", type=int, default=-1)
-    ap.add_argument("--drift-rate", type=float, default=0.05)
-    ap.add_argument("--health-threshold", type=float, default=None)
-    ap.add_argument("--health-poll", type=int, default=None)
-    ap.add_argument("--mesh-model", type=int, default=0)
+    ap.add_argument("--drift-replica", type=int, default=-1,
+                    help="router path only: inject temporal conductance "
+                         "drift into this replica's chip-health canary "
+                         "(-1 = no drift / no health monitor)")
+    ap.add_argument("--drift-rate", type=float, default=0.05,
+                    help="mean drift exponent nu for the degraded replica "
+                         "(hw.variation.DriftConfig.rate)")
+    ap.add_argument("--health-threshold", type=float, default=0.05,
+                    help="canary relative-deviation threshold above which "
+                         "the HealthMonitor drains a replica")
+    ap.add_argument("--health-poll", type=int, default=2,
+                    help="router ticks between HealthMonitor polls")
     args = ap.parse_args(argv)
-    _not_ported(args)
+    _check_flags(args)
     device = resolve_device(args.device)
 
     m = get_arch(args.arch, smoke=args.smoke).model
@@ -143,22 +213,74 @@ def main(argv=None) -> dict:
             recorder, args.snapshot_out,
             interval_s=args.snapshot_every).start()
 
-    eng = Engine(params, m, queue=AdmissionQueue(args.queue_cap or None),
-                 recorder=recorder, **eng_kw)
+    queue = AdmissionQueue(args.queue_cap or None)
     eos_planted = args.check and args.new_tokens >= 3
-    if eos_planted:
-        # a genuine early stop: request 0's EOS is its own 2nd token, probed
-        # through an identical engine (the same fused-tick shapes) on the
-        # deployed params
-        probe = Engine(eng.params, m, **eng_kw).run(
-            [Request(rid="probe", tokens=reqs[0].tokens, max_new=2)])
-        reqs[0].eos_id = int(probe[0].tokens[1])
-    comps = eng.run(reqs)
+    router = ref_comps = None
+    if args.replicas > 1:
+        from repro_torch.serve.router import Router
+
+        def rec_for(i):
+            return recorder.for_replica(i) if recorder else None
+
+        eng = Engine(params, m, recorder=rec_for(0), **eng_kw)
+        if eos_planted:
+            # the single-engine path's planted-EOS probe, through an
+            # identical engine whose profiler state replica 0 adopts
+            probe_eng = Engine(eng.params, m, recorder=rec_for(0), **eng_kw)
+            probe = probe_eng.run([Request(rid="probe", tokens=reqs[0].tokens,
+                                           max_new=2)])
+            reqs[0].eos_id = int(probe[0].tokens[1])
+            eng.adopt_compiled(probe_eng)
+        # replicas 1..N-1 share replica 0's deployed params (one frozen
+        # artifact serves the fleet); each holds its own page pool
+        replicas = [eng] + [
+            Engine(eng.params, m, recorder=rec_for(i), **eng_kw)
+            .adopt_compiled(eng) for i in range(1, args.replicas)]
+        router = Router(replicas, queue=queue, recorder=recorder)
+        if args.drain_tick:
+            router.schedule_drain(args.drain_replica, args.drain_tick)
+        if args.drift_replica >= 0:
+            from repro_torch.hw.health import ChipHealth, ProbeGeometry
+            from repro_torch.hw.tiles import TileConfig
+            from repro_torch.hw.variation import DriftConfig
+            mon = router.enable_health(
+                poll_every=args.health_poll,
+                drift_threshold=args.health_threshold, slos=lenient_slos)
+            for i in range(args.replicas):
+                # every replica carries a canary probe; only the degraded
+                # one drifts (tau 4: the deviation crosses the default
+                # threshold within about a dozen ticks)
+                drifting = i == args.drift_replica
+                mon.attach_chip(i, ChipHealth(
+                    tile=TileConfig(array_size=64, tile_cols=16),
+                    drift=DriftConfig(
+                        rate=args.drift_rate if drifting else 0.0,
+                        tau=4.0, seed=args.seed),
+                    geometry=ProbeGeometry(layer_uids=(0, 1),
+                                           tiles_per_layer=2),
+                    registry=(recorder.metrics if recorder else None),
+                    labels={"replica": str(i)}))
+        comps = router.run(reqs)
+        if args.check and args.drift_replica >= 0:
+            # a healthy single engine on the same trace and deployed params:
+            # greedy decoding is deterministic, so the auto-drained fleet
+            # must emit the same completion tokens
+            ref_comps = Engine(eng.params, m, **eng_kw).adopt_compiled(
+                eng).run(list(reqs))
+    else:
+        eng = Engine(params, m, queue=queue, recorder=recorder, **eng_kw)
+        if eos_planted:
+            # a genuine early stop: request 0's EOS is its own 2nd token,
+            # probed through an identical engine (the same fused-tick
+            # shapes) on the deployed params
+            probe = Engine(eng.params, m, **eng_kw).run(
+                [Request(rid="probe", tokens=reqs[0].tokens, max_new=2)])
+            reqs[0].eos_id = int(probe[0].tokens[1])
+        comps = eng.run(reqs)
 
     if recorder is not None:
         if eng.kan_deployed and m.kan_backend == "cim_tiled":
-            print("note: chip telemetry (hw.chip.publish_report) is not "
-                  f"ported yet: {ROUTER_SLICE}")
+            _publish_chip(eng.params, recorder.metrics)
         if args.trace_out:
             print(f"trace  -> {recorder.export_trace(args.trace_out)}")
         if args.metrics_out:
@@ -177,11 +299,12 @@ def main(argv=None) -> dict:
               f"({server.scrapes} scrapes served)")
         server.stop()
 
-    rep = eng.stats.report()
+    rep = router.report() if router is not None else eng.stats.report()
     kan_note = (f" kan_backend={m.kan_backend} (deployed once)"
                 if eng.kan_deployed else "")
     print(f"arch={m.name} slots={args.slots} requests={args.requests} "
-          f"stagger={args.stagger} device={device}{kan_note}")
+          f"stagger={args.stagger} device={device} "
+          f"replicas={args.replicas}{kan_note}")
     print(json.dumps(rep, indent=1))
     for c in comps[:4]:
         print(f"  rid={c.rid} reason={c.reason} slot={c.slot} "
@@ -197,7 +320,9 @@ def main(argv=None) -> dict:
                              f"is {live_snap.get('schema')!r}, want obs/v1")
         print("metrics endpoint check OK: scrape matches exposition, "
               "snapshot schema obs/v1")
-    if args.check:
+    if args.check and router is not None:
+        _check_router(args, rep, router, comps, ref_comps, eos_planted)
+    elif args.check:
         problems = []
         if rep["completed"] != args.requests:
             problems.append(f"completed {rep['completed']} != "
@@ -212,6 +337,50 @@ def main(argv=None) -> dict:
             raise SystemExit("engine check FAILED: " + "; ".join(problems))
         print("engine check OK: slot reuse, EOS eviction, full completion")
     return rep
+
+
+def _check_router(args, rep, router, comps, ref_comps, eos_planted) -> None:
+    """The router path's ``--check``: no lost request, dispatch accounting,
+    slot reuse, EOS eviction, the scheduled drain, and with drift the
+    health drain and the healthy single engine's completion tokens."""
+    problems = []
+    per = rep["per_replica"]
+    if rep["completed"] != args.requests:
+        problems.append(f"lost requests: completed {rep['completed']} != "
+                        f"{args.requests} submitted")
+    if sum(rep["routed"]) != args.requests + rep["requeued"]:
+        problems.append(f"dispatch accounting does not add up: routed "
+                        f"{rep['routed']} vs {args.requests} requests + "
+                        f"{rep['requeued']} requeued")
+    if max(r["slot_reuse"] for r in per) <= 1:
+        problems.append("no slot reuse on any replica")
+    if eos_planted and sum(r["evicted_eos"] for r in per) < 1:
+        problems.append("no EOS eviction observed")
+    if args.drain_tick and rep["drains"] < 1:
+        problems.append("scheduled drain never fired")
+    if args.drift_replica >= 0:
+        if rep["drained_for_health"] < 1:
+            problems.append("health monitor never drained the degraded "
+                            "replica")
+        if not router.draining[args.drift_replica]:
+            problems.append(f"degraded replica {args.drift_replica} is not "
+                            "draining")
+        if ref_comps is not None:
+            def toks(cs):
+                return sorted((c.rid, tuple(int(t) for t in c.tokens))
+                              for c in cs)
+            if toks(comps) != toks(ref_comps):
+                problems.append("auto-drained fleet tokens differ from the "
+                                "healthy single-engine reference")
+    if problems:
+        raise SystemExit("router check FAILED: " + "; ".join(problems))
+    print(f"router check OK: zero lost requests ({rep['completed']}/"
+          f"{args.requests} completed, {rep['requeued']} requeued), slot "
+          "reuse, EOS eviction")
+    if args.drift_replica >= 0:
+        print(f"health check OK: replica {args.drift_replica} auto-drained "
+              f"({rep['drained_for_health']} health drains), tokens "
+              "identical to healthy reference")
 
 
 if __name__ == "__main__":

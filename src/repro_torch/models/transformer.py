@@ -3,8 +3,8 @@ stage grouping, init, forward, parameter counting and ``deploy_kan``, for
 decoder-only models whose layers mix with ``attn`` (full causal GQA),
 ``swa`` (sliding window), ``local`` (Griffin local attention), ``bidir``
 (bidirectional), ``ssd`` or ``rglru`` (Griffin's RG-LRU) and whose FFN is
-``mlp``, ``kan`` (the paper's ASP-KAN-HAQ KAN-FFN through ``core.kan``) or
-none.
+``mlp``, ``moe`` (``models.moe``, on one device), ``kan`` (the paper's
+ASP-KAN-HAQ KAN-FFN through ``core.kan``) or none.
 
 The parameter tree keeps the JAX layout, so weights carry across leaf by
 leaf (``params_from_numpy``): ``{"embed", "final_norm": {"scale"},
@@ -31,6 +31,7 @@ from repro_torch.core.kan import params_from_numpy  # noqa: F401 (the LM's)
 from repro_torch.core.quant import ASPConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 
@@ -41,7 +42,6 @@ ATTN_MIXERS = ("attn", "swa", "local", "bidir")
 # what is not ported yet, and the ROADMAP slice that ports it
 LATER = {
     "cross_attn": "Slice D6 (the other configs: cross attention, whisper)",
-    "moe": "Slice D4 (MoE)",
     "encdec": "Slice D6 (the other configs: cross attention, whisper)",
     "frontend": "Slice D6 (the other configs)",
 }
@@ -54,13 +54,13 @@ def not_ported(what: str, name: str) -> NotImplementedError:
 
 def check_ported(spec: "LayerSpec") -> None:
     """Raise for a layer with parts of a later slice: ported are the
-    attention, ``ssd`` and ``rglru`` mixers (or none) and the ``mlp`` and
-    ``kan`` FFNs (or none), without cross attention."""
+    attention, ``ssd`` and ``rglru`` mixers (or none) and the ``mlp``,
+    ``moe`` and ``kan`` FFNs (or none), without cross attention."""
     if spec.mixer not in ATTN_MIXERS + ("ssd", "rglru", "none"):
         raise not_ported("mixer", spec.mixer)
     if spec.cross_attn:
         raise not_ported("layer part", "cross_attn")
-    if spec.ffn not in ("mlp", "kan", "none"):
+    if spec.ffn not in ("mlp", "moe", "kan", "none"):
         raise not_ported("ffn", spec.ffn)
 
 
@@ -155,6 +155,15 @@ class ModelConfig:
         return kan.KANSpec.ffn(self.d_model, hidden, asp,
                                backend=self.kan_backend,
                                dtype=self.param_dtype)
+
+    @property
+    def moe_cfg(self) -> moe_lib.MoEConfig:
+        return moe_lib.MoEConfig(
+            d_model=self.d_model, d_ff=self.moe_d_ff or self.d_ff,
+            n_experts=self.n_experts, top_k=self.top_k,
+            n_shared_experts=self.n_shared_experts,
+            capacity_factor=self.capacity_factor,
+            activation=self.activation, dtype=self.param_dtype)
 
     @property
     def ssd_cfg(self) -> ssd_lib.SSDConfig:
@@ -354,6 +363,9 @@ def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device) -> Dict:
     if spec.ffn == "mlp":
         p["ffn_norm"] = norm(cfg.d_model, device)
         p["mlp"] = _init_mlp(gen, cfg, device)
+    elif spec.ffn == "moe":
+        p["ffn_norm"] = norm(cfg.d_model, device)
+        p["moe"] = moe_lib.init_moe(gen, cfg.moe_cfg, device=device)
     elif spec.ffn == "kan":
         p["ffn_norm"] = norm(cfg.d_model, device)
         p["kan"] = kan.init(gen, cfg.kan_spec, device=device)
@@ -391,8 +403,8 @@ def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
                device=None) -> Dict:
     """Random weights in the JAX layout, drawn from ``seed`` (an int or a
     generator on ``device``). ``device=None`` is the card; ``"meta"`` gives
-    shapes only (parameter counts at full width without allocating). JAX's
-    ``n_model`` argument shapes MoE experts, which are Slice D4."""
+    shapes only (parameter counts at full width without allocating). MoE
+    experts are packed for one model shard (JAX's ``n_model=1``)."""
     device = resolve_device(device)
     if cfg.family == "encdec":
         raise not_ported("family", "encdec")
@@ -476,17 +488,36 @@ def kan_ffn(p, x: Tensor, cfg: ModelConfig) -> Tensor:
     return kan.apply_any(p["kan"], xn, cfg.kan_spec).to(x.dtype)
 
 
-def apply_ffn(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig) -> Tensor:
-    """The residual stream after the layer's FFN (if it has one)."""
+def moe_ffn(p, x: Tensor, cfg: ModelConfig
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The MoE FFN on the normed stream: (y in x's dtype, aux losses)."""
+    xn = layers.NORM_APPLY[cfg.norm](p["ffn_norm"], x)
+    return moe_lib.apply_moe(p["moe"], xn, cfg.moe_cfg)
+
+
+def apply_ffn_aux(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The residual stream after the layer's FFN (if it has one), and the
+    FFN's aux losses (MoE's; empty otherwise)."""
+    aux: Dict[str, Tensor] = {}
     if spec.ffn == "mlp":
         x = x + mlp_ffn(p, x, cfg)
+    elif spec.ffn == "moe":
+        y, aux = moe_ffn(p, x, cfg)
+        x = x + y
     elif spec.ffn == "kan":
         x = x + kan_ffn(p, x, cfg)
-    return x
+    return x, aux
+
+
+def apply_ffn(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig) -> Tensor:
+    """The residual stream after the layer's FFN (serving drops MoE's aux
+    losses, as the reference's decode does)."""
+    return apply_ffn_aux(p, x, spec, cfg)[0]
 
 
 def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
-                 positions: Tensor) -> Tensor:
+                 positions: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     check_ported(spec)
     if spec.mixer in ATTN_MIXERS:
         x = x + _attn_mixer(p, x, cfg, spec, positions)
@@ -499,7 +530,7 @@ def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
         xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
         x = x + rglru_lib.apply_rglru_block(p["rglru"], xn, cfg.rglru_cfg
                                             ).to(x.dtype)
-    return apply_ffn(p, x, spec, cfg)
+    return apply_ffn_aux(p, x, spec, cfg)
 
 
 def prescan_cast(stage_params, cfg: ModelConfig):
@@ -514,17 +545,26 @@ def prescan_cast(stage_params, cfg: ModelConfig):
 
 
 def _run_stages(stage_params, stages: Sequence[Stage], x: Tensor,
-                cfg: ModelConfig) -> Tensor:
-    """Every layer in order, a stage's repeats in a Python loop."""
+                cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """Every layer in order, a stage's repeats in a Python loop. Returns
+    the stream and the aux loss: each block's MoE load-balance and z losses
+    summed from zero, layer by layer, then the blocks' sums added in order
+    (the reference's order)."""
     if cfg.prescan_cast:
         stage_params = prescan_cast(stage_params, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for st_params, stage in zip(stage_params, stages):
         for r in range(stage.repeats):
             lp = st_params if stage.repeats == 1 else layer_of(st_params, r)
+            block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, spec in enumerate(stage.block):
-                x = _apply_layer(lp[f"l{i}"], x, spec, cfg, positions)
-    return x
+                x, aux = _apply_layer(lp[f"l{i}"], x, spec, cfg, positions)
+                for k in ("moe_load_balance", "moe_z"):
+                    if k in aux:
+                        block_aux = block_aux + aux[k]
+            aux_total = aux_total + block_aux
+    return x, aux_total
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Mapping) -> Tensor:
@@ -551,13 +591,12 @@ def logits_from(params, cfg: ModelConfig, x: Tensor) -> Tensor:
 
 def forward(params, cfg: ModelConfig, batch: Mapping
             ) -> Tuple[Tensor, Tensor]:
-    """Full forward -> (logits [B,S,V], aux loss scalar). The aux loss is
-    MoE's (Slice D4); without MoE layers it is 0."""
+    """Full forward -> (logits [B,S,V], aux loss scalar): the MoE layers'
+    load-balance and router-z losses, 0 without MoE layers."""
     if cfg.family == "encdec":
         raise not_ported("family", "encdec")
     x = embed_inputs(params, cfg, batch)
-    x = _run_stages(params["stages"], stages_for(cfg), x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_stages(params["stages"], stages_for(cfg), x, cfg)
     return logits_from(params, cfg, x), aux
 
 

@@ -82,10 +82,17 @@ class JitProfiler:
     """Wrap a callable; record its first call per shape key."""
 
     def __init__(self, fn, name: str, recorder):
+        # re-wrapping a profiler (``Engine.adopt_compiled``) shares its
+        # record of the shape keys seen: the adopting engine logs no first
+        # call for a shape the other engine already ran
+        if isinstance(fn, JitProfiler):
+            self._seen = fn._seen
+            fn = fn.fn
+        else:
+            self._seen: Dict[str, bool] = {}
         self.fn = fn
         self.name = name
         self.recorder = recorder
-        self._seen: Dict[str, bool] = {}
         self.events: List[CompileEvent] = []
 
     def __call__(self, *args):

@@ -65,9 +65,6 @@ from repro_torch.serve.paging import GARBAGE_PAGE, PagedAllocator, page_hashes
 from repro_torch.serve.scheduler import (AdmissionQueue, Completion,
                                          EngineStats, Request)
 
-ROUTER_SLICE = "ROADMAP Slice E part 2 (the router)"
-
-
 # The device calls are module-level functions parameterised by
 # functools.partial on the config, never bound to the Engine.
 
@@ -569,11 +566,31 @@ class Engine:
         return done
 
     def adopt_compiled(self, other: "Engine") -> "Engine":
-        """The reference shares compiled executables between replicas; the
-        port compiles nothing, and this replica seam comes with the
-        router."""
-        raise NotImplementedError(f"Engine.adopt_compiled is not ported "
-                                  f"yet: {ROUTER_SLICE}")
+        """Take over another engine's per-shape-key profiler state, for
+        replicas and probe engines of identical geometry (cfg, n_slots,
+        max_len, page_size, n_pages), as the reference shares its compiled
+        executables. The port compiles nothing; what carries over is the
+        record of the shapes already run, so this engine logs no first-call
+        event for them. With a recording recorder the adopted profilers are
+        re-bound to this engine's (sharing the other's record) and its own
+        are kept for the shapes the other never profiled; without one there
+        is nothing to adopt: the port's callables are the same functions
+        either way."""
+        mine = (self.cfg, self.n_slots, self.max_len, self.page_size,
+                self.n_pages)
+        theirs = (other.cfg, other.n_slots, other.max_len, other.page_size,
+                  other.n_pages)
+        if mine != theirs:
+            raise ValueError("adopt_compiled: engines differ in "
+                             "cfg/n_slots/max_len/page_size/n_pages")
+        if self.obs.enabled:
+            from repro_torch.obs import profile as obs_profile
+            self._profilers.update({
+                key: obs_profile.JitProfiler(prof, prof.name, self.obs)
+                for key, prof in other._profilers.items()})
+            self._decode = self._profilers[("decode",)]
+            self._scatter = self._profilers[("scatter",)]
+        return self
 
     def run(self, requests: Sequence[Request] = (),
             max_ticks: int = 1_000_000) -> List[Completion]:

@@ -476,8 +476,11 @@ def test_stats_report_keys(jx):
 def test_unported_paths_raise():
     m, params = _port_model("mamba2_1p3b")
     eng = _engine(params, m, n_slots=1, max_len=12)
-    with pytest.raises(NotImplementedError, match="router"):
-        eng.adopt_compiled(eng)
+    # adopt_compiled is ported: it refuses only another geometry
+    assert eng.adopt_compiled(_engine(params, m, n_slots=1, max_len=12)) \
+        is eng
+    with pytest.raises(ValueError, match="adopt_compiled"):
+        eng.adopt_compiled(_engine(params, m, n_slots=2, max_len=12))
     with pytest.raises(NotImplementedError, match="encdec"):
         eng.submit(Request(rid=0, tokens=np.arange(4), max_new=2,
                            frames=np.zeros((3, 4))))

@@ -506,14 +506,21 @@ def test_launcher_check_on_the_cpu(argv, tmp_path, capsys):
         assert rep["prefix_hit_pages"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"], ["--drain-tick", "3"],
+@pytest.mark.parametrize("flag", [["--replicas", "2", "--mesh-model", "2"],
                                   ["--drift-replica", "0"],
-                                  ["--health-poll", "2"],
+                                  ["--replicas", "2", "--drift-replica", "2"],
+                                  ["--mesh-model", "1"],
                                   ["--mesh-model", "2"]])
 def test_launcher_later_slices_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Slice"):
-        tlaunch.main(["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu"]
-                     + flag)
+    """``--mesh-model`` is Slice F and raises naming it; the router's flags
+    are ported and raise only the reference's argument errors."""
+    argv = ["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu"] + flag
+    if flag[0] == "--mesh-model":
+        with pytest.raises(NotImplementedError, match="ROADMAP Slice F"):
+            tlaunch.main(argv)
+    else:
+        with pytest.raises(SystemExit, match="--replicas|--drift-replica"):
+            tlaunch.main(argv)
 
 
 @pytest.mark.parametrize("backend", [None, "fused"])
