@@ -3,8 +3,10 @@ recurrentgemma-2b, train CF-KAN-1 and search its per-layer operating points
 at full width on one CUDA card through the port's hand-written kernels,
 serve the KAN-FFN LLM and mamba2-1.3b through the continuous-batching
 engine and the KAN-FFN LLM through the multi-replica router and the
-launcher's fleet path, run mixtral-8x7b over a measured cut of its layers,
-and hold every kernel against its plain version.
+launcher's fleet path, run mixtral-8x7b and internvl2-76b over measured
+cuts of their layers, serve whisper-base through the engine, train the
+KAN-FFN LLM, whisper-base and mamba2-1.3b end to end, and hold every
+kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -282,7 +284,7 @@ Phases (any failed check raises, and the script exits non-zero):
    mixtral-8x7b ``CONFIG`` (d 4096, 32/8 heads, 8 experts top-2, d_ff
    14336, window 4096, bf16 compute, f32 params, capacity factor 1.25)
    from a seeded CUDA generator over the deepest cut of its 32 layers that
-   fits: the phase's path at 2 and 3 layers (``MIXTRAL_CALIB``) gives
+   fits: the phase's path at 2 and 3 layers (``CALIB``) gives
    each part's peak memory and its growth per layer, and the cut is the
    most layers whose every part stays under 88% of the card (phase 10b ran at 87.8%). 2 prompts
    of 5120 tokens (``batch_at(vocab=32000, batch=2, seq_len=5120,
@@ -306,6 +308,47 @@ Phases (any failed check raises, and the script exits non-zero):
    and the router inputs' mean cosine at prefill and, from
    ``torch.profiler``, the device's share of the expert products, the
    dispatch and the combine.
+15. (a) whisper-base ``CONFIG`` (6 + 6 layers, d 512, 8 heads, vocab
+   51865, bf16 compute, f32 params) through the engine, 8 slots: 16
+   requests, each with 1500 seeded frames (Whisper's 30-second window)
+   and a prompt of 4..64 tokens, 32 new; a request with short or no
+   frames is refused (``ValueError``); no kernel launches; each request
+   equals its solo ``prefill`` + ``decode_step`` run, teacher-forced, at
+   every step whose lead is over twice the bf16 reach of its prefill
+   (phase 13b's rule); encode and prefill alone timed, a profiled tick
+   window; then 2 prompts of 64 tokens with frames through prefill,
+   decode and forward with the f32 control (phase 8's bars). (b)
+   internvl2-76b ``CONFIG`` (d 8192, heads 64/8, d_ff 28672, vocab
+   128256, 256 vision patches; 69,503,033,344 parameters counted on the
+   meta device) over the deepest cut of its 80 layers under 88% of the
+   card (its path at 2 and 3 layers gives each part's peak, as 14c): 2
+   prompts of 1024 positions, the first 256 seeded vision embeddings,
+   prefill, 8 decode steps and forward, held to each other, bf16 against
+   the f32 control; the embeddings must move the logits. (c) Training:
+   ``kan_llm`` ``CONFIG`` on ``fused`` through ``launch.train.main`` at
+   16 x 512, AdamW, ``warmup_cosine(3e-4, 10, steps)``: 60 steps saving
+   every 20, then a run that prints ``resumed from step 60`` and goes to
+   80; ``kan_fused`` launches equal the calls the code makes (each
+   KAN-FFN's two spline layers in the forward and again in the block's
+   recompute, 16 a step), the loss falls, ``kan_fused`` at the training
+   shapes [8192, 256] -> 85 and [8192, 85] -> 256 is held as in phase 3,
+   and one step's gradients on the card match the CPU's plain run
+   (``tests/test_torch_train.py``'s ``atol 1e-5, rtol 1e-5`` plus twice
+   the reach of f32 rounding, measured on the CPU alone as its f32 run's
+   distance from the same run with float64 weights and compute dtype;
+   every entry of every leaf). whisper-base: 10 AdamW
+   steps at lr 1e-3 on 8 x 1500 frames and 448 tokens; the loss falls.
+   mamba2-1.3b, 48 layers, 2 x 2048: every parameter leaf gets a finite,
+   nonzero gradient (``ssd_scan`` inside the autograd Function
+   ``ops._SsdScan``); layer 0's scan gradients through the Function
+   against the plain chunked form's on the card at the JAX suite's bar,
+   and against the sequential ``ref.ssd_ref``'s, which shares no code
+   with the Function, within ``SSD_SEQ_GRAD_REL`` of each leaf's largest;
+   the scan's forward, the Function's backward and the plain form's
+   forward + backward timed; 5 AdamW steps through ``launch.train``
+   (``ssd_scan`` twice a layer a step). Per model: ms a step, as the
+   median of synchronized steps and over a window, the device's busy ms
+   a step and its idle share (profiler), peak GB.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -314,6 +357,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -333,6 +377,7 @@ from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
 from repro_torch.configs import kan_llm, kan_llm_int8  # noqa: E402
 from repro_torch.configs import mistral_nemo_12b, mixtral_8x7b  # noqa: E402
 from repro_torch.configs import recurrentgemma_2b  # noqa: E402
+from repro_torch.configs import internvl2_76b, whisper_base  # noqa: E402
 from repro_torch.core import kan, kan_sam, quant, splines  # noqa: E402
 from repro_torch.data import cf_synth, lm_synth  # noqa: E402
 from repro_torch.examples import kan_neurosim_search  # noqa: E402
@@ -343,6 +388,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import cim_mac as cim_kernels  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernels  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import cf_kan, layers  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -353,6 +399,10 @@ from repro_torch.obs import EngineRecorder  # noqa: E402
 from repro_torch.serve import decode  # noqa: E402
 from repro_torch.serve.engine import Engine, synth_trace  # noqa: E402
 from repro_torch.serve.router import Router  # noqa: E402
+from repro_torch.serve.scheduler import Request  # noqa: E402
+from repro_torch.optim import make_optimizer, warmup_cosine  # noqa: E402
+from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
+                                          make_train_step, value_and_grad)
 from repro_torch.tune import space  # noqa: E402
 
 PEAK_F32 = 67e12          # FLOP/s, H100 SXM, outside the tensor cores
@@ -382,6 +432,12 @@ SOURCES = {
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 MAMBA2_PARAMS = 1_343_532_032
 SSD_ATOL, SSD_RTOL = 3e-5, 1e-4   # the JAX suite's ssd bar
+# the chunked form's VJP against the sequential scan's at mamba2-1.3b's
+# layer shape (T 2048, chunk 256), per leaf over its largest entry: the
+# chunked form rounds each chunk's cumulative log-decay (up to 256 terms)
+# in f32, and the decays are exps of its differences; the sequential f32
+# scan is within 1e-6 of an f64 one there
+SSD_SEQ_GRAD_REL = 1e-4
 LM_SMALL_BAR = 2e-4               # the JAX serving suite's bar (f32)
 # f32 compute: prefill/decode (the step recurrence) against forward (the
 # chunked scan) differ by f32 sums in another order, compounded over 48
@@ -447,10 +503,34 @@ ROUTER_HEALTH = dict(poll_every=2, drift_threshold=0.05)
 ROUTER_PROFILE = (10, 6)
 LAUNCH_FLEET_SLOTS = 16
 MIXTRAL_BATCH, MIXTRAL_PROMPT = 2, 5120
-MIXTRAL_MEM_SHARE = 0.88
-# the depths whose peaks give the cut's linear fit (a single layer's stage
-# is not stacked, so its peaks sit off the line the deeper stages lie on)
-MIXTRAL_CALIB = (2, 3)
+# a model cut to the card (14c, 15b): at most this share of the card's
+# memory, and the depths whose peaks give the cut's linear fit (a single
+# layer's stage is not stacked, so its peaks sit off the line the deeper
+# stages lie on)
+MEM_SHARE = 0.88
+CALIB = (2, 3)
+# phase 15: (a) whisper-base served: 16 requests, each with 1500 frames
+# (Whisper's 30-second window) and a prompt of 4..64 tokens, 32 new tokens,
+# through the engine at 8 slots (max_len 64 + 32 - 1 -> 96); the static f32
+# control on 2 prompts of 64 tokens, 16 new. (b) internvl2-76b over the
+# deepest cut of its 80 layers under 88% of the card (calibrated at 2 and
+# 3 layers as phase 14c): 2 prompts of 1024 positions, the first 256 the
+# vision embeddings, 8 new tokens. (c) training: kan_llm on fused through
+# launch.train (60 steps saving every 20, resumed to 80) at 16 x 512;
+# whisper-base 10 AdamW steps at lr 1e-3 on 8 x 1500 frames and 448
+# tokens (Whisper's decoder length); mamba2-1.3b at 2 x 2048, 5 AdamW
+# steps; per model the synchronized steps, a window and profiled steps
+WHISPER_REQUESTS, WHISPER_FRAMES = 16, 1500
+WHISPER_PROMPTS, WHISPER_NEW = (4, 64), 32
+WHISPER_ENGINE = dict(n_slots=8, max_len=96)
+WHISPER_STATIC = (2, 64, 16)
+INTERNVL2_PARAMS = 69_503_033_344
+VLM_BATCH, VLM_PROMPT, VLM_NEW = 2, 1024, 8
+KAN_TRAIN = dict(batch=16, seq=512, steps=(60, 80), save_every=20)
+WHISPER_TRAIN = dict(batch=8, frames=1500, seq=448, steps=10, lr=1e-3)
+MAMBA_TRAIN = dict(batch=2, seq=2048, steps=5)
+TRAIN_TIMING = (5, 5, 3)    # synchronized steps, window steps, profiled
+MAMBA_TIMING = (2, 1)       # window and profiled steps (its 5 are synced)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1163,15 +1243,18 @@ def ssd_phase(timer, params, cfg, prompt):
 
 # --- phase 8: the LM main path -----------------------------------------------
 
-def teacher_forced(params, cfg, prompt, toks):
+def teacher_forced(params, cfg, prompt, toks, extra=None):
     """prefill(last_only) and one decode step per generated token, each
     timed to its synchronize, then ``forward`` over the prompt and all but
     the last generated token. Returns the prefill's last logits, the decode
     logits [B, n-1, V], forward's logits and the times; launch counts are
-    zeroed before ``forward`` and returned from just after it."""
+    zeroed before ``forward`` and returned from just after it. ``extra``:
+    the frontend's inputs (frames, vision_embeds), given to prefill and
+    forward alike."""
     s = prompt.shape[1]
+    extra = extra or {}
     t0 = time.perf_counter()
-    logits_p, cache = decode.prefill(params, cfg, {"tokens": prompt},
+    logits_p, cache = decode.prefill(params, cfg, {"tokens": prompt, **extra},
                                      s + toks.shape[1], last_only=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -1186,7 +1269,7 @@ def teacher_forced(params, cfg, prompt, toks):
     full = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits_f, _ = tfm.forward(params, cfg, {"tokens": full})
+    logits_f, _ = tfm.forward(params, cfg, {"tokens": full, **extra})
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     launches_fwd = ops.launch_counts()
@@ -2383,12 +2466,14 @@ def print_engine(label, rep, prof, launches, extra=""):
           f"per call, repeated: {calls}")
 
 
-def solo_forced(params, cfg, prompt, toks):
+def solo_forced(params, cfg, prompt, toks, extra=None):
     """The request alone (batch 1) through ``decode.prefill`` and
     ``decode_step`` on the card, fed the engine's tokens ``toks``: per
     step the solo argmax and its top-1 lead over top-2; the prefill's last
-    logits (f32) and its cache."""
-    logits, cache = decode.prefill(params, cfg, {"tokens": prompt[None]},
+    logits (f32) and its cache. ``extra``: the request's frontend inputs,
+    batch 1."""
+    logits, cache = decode.prefill(params, cfg, {"tokens": prompt[None],
+                                                 **(extra or {})},
                                    len(prompt) + len(toks), last_only=True)
     steps, first_cache = [logits[0, -1].float()], cache
     for i in range(len(toks) - 1):
@@ -3223,31 +3308,41 @@ def mixtral_path(cfg, prompt, profile=False):
     return out
 
 
-def mixtral_phase(dev):
-    """Phase 14c: mixtral-8x7b at full width over the deepest cut of its
-    32 layers that fits: the phase's path at the ``MIXTRAL_CALIB`` depths
-    gives each part's measured peak and its growth per layer, and the cut
-    is the most layers whose every part's extrapolated peak stays under
-    ``MIXTRAL_MEM_SHARE`` of the card."""
-    data = lm_synth.batch_at(lm_synth.LMDataConfig(
-        vocab=mixtral_8x7b.CONFIG.model.vocab, batch=MIXTRAL_BATCH,
-        seq_len=MIXTRAL_PROMPT, seed=0), 0)
-    prompt = torch.from_numpy(data["tokens"]).to(dev)
+def measured_cut(path_peaks, n_layers):
+    """The deepest cut of a model's ``n_layers`` that fits: ``path_peaks(n)``
+    runs the phase's path at ``n`` layers and returns each part's peak GB;
+    at the ``CALIB`` depths these give each part's peak and its growth per
+    layer, and the cut is the most layers whose every part's extrapolated
+    peak stays under ``MEM_SHARE`` of the card. Returns (cut, predicted
+    peak GB, the calibration peaks, the card's GB)."""
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    n0, n1 = CALIB
     calib = {}
-    n0, n1 = MIXTRAL_CALIB
-    for n in (n0, n1):
+    for n in CALIB:
         torch.cuda.empty_cache()
-        calib[n] = mixtral_path(mixtral_cfg(n), prompt)["peaks_gb"]
+        calib[n] = path_peaks(n)
     slope = {k: (calib[n1][k] - calib[n0][k]) / (n1 - n0) for k in calib[n0]}
 
     def peak_at(n):
         return max(calib[n0][k] + slope[k] * (n - n0) for k in slope)
-    cut = mixtral_8x7b.CONFIG.model.n_layers
-    while cut > n1 and peak_at(cut) > MIXTRAL_MEM_SHARE * card_gb:
+    cut = n_layers
+    while cut > n1 and peak_at(cut) > MEM_SHARE * card_gb:
         cut -= 1
-    predicted = peak_at(cut)
     torch.cuda.empty_cache()
+    return cut, peak_at(cut), calib, card_gb
+
+
+def mixtral_phase(dev):
+    """Phase 14c: mixtral-8x7b at full width over the deepest cut of its
+    32 layers that fits (``measured_cut``)."""
+    data = lm_synth.batch_at(lm_synth.LMDataConfig(
+        vocab=mixtral_8x7b.CONFIG.model.vocab, batch=MIXTRAL_BATCH,
+        seq_len=MIXTRAL_PROMPT, seed=0), 0)
+    prompt = torch.from_numpy(data["tokens"]).to(dev)
+    cut, predicted, calib, card_gb = measured_cut(
+        lambda n: mixtral_path(mixtral_cfg(n), prompt)["peaks_gb"],
+        mixtral_8x7b.CONFIG.model.n_layers)
+    n0, n1 = CALIB
     cfg = mixtral_cfg(cut)
     t0 = time.perf_counter()
     metrics = mixtral_path(cfg, prompt, profile=True)
@@ -3287,6 +3382,557 @@ def mixtral_phase(dev):
           f"{metrics['decode_steps_dropping']} of {LM_NEW - 1}; device "
           f"shares of the MoE parts {shares}")
     return metrics
+
+
+# --- phase 15: whisper-base and internvl2-76b served; the LMs trained -------
+
+def static_paths(params, cfg, prompt, extra, n_new):
+    """Greedy ``n_new`` tokens through prefill and decode steps on the card
+    (the frontend's inputs in ``extra``), then ``teacher_forced`` on them at
+    the config's compute dtype and at f32: the f32 control within
+    ``F32_PATH_BAR``, the bf16 paths within the reach of bf16 rounding (the
+    largest distance between the bf16 and f32 forwards), phase 8's rule.
+    Returns the metrics and the bf16 run's times."""
+    s = prompt.shape[1]
+    logits, cache = decode.prefill(params, cfg, {"tokens": prompt, **extra},
+                                   s + n_new, last_only=True)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    toks = [tok]
+    for i in range(n_new - 1):
+        logits, cache = decode.decode_step(params, cache, tok, s + i, cfg)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        toks.append(tok)
+    toks = torch.cat(toks, dim=1)
+    del cache
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{cfg.name}: tokens out of the vocabulary")
+    lp, ld, lf, times, _ = teacher_forced(params, cfg, prompt, toks, extra)
+    check(torch.equal(torch.argmax(lp, -1), toks[:, 0])
+          and torch.equal(torch.argmax(ld, -1), toks[:, 1:]),
+          f"{cfg.name}: the timed prefill and decode do not repeat greedy")
+    lp32, ld32, lf32, _, _ = teacher_forced(
+        params, dataclasses.replace(cfg, dtype=torch.float32), prompt, toks,
+        extra)
+    metrics = paths_agree("f32", lp32, ld32, lf32, F32_PATH_BAR)
+    reach = float((lf.float() - lf32).abs().max())
+    del lp32, ld32, lf32
+    metrics.update(paths_agree("bf16", lp, ld, lf, reach))
+    return metrics, times
+
+
+def whisper_serve_phase(dev):
+    """Phase 15a. Returns the metrics."""
+    cfg = whisper_base.CONFIG.model
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_model(0, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    lo, hi = WHISPER_PROMPTS
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab,
+                                               int(rng.integers(lo, hi + 1))),
+                    max_new=WHISPER_NEW, arrival=i // 2,
+                    frames=torch.randn((WHISPER_FRAMES, cfg.d_model),
+                                       generator=gen, device=dev))
+            for i in range(WHISPER_REQUESTS)]
+    eng_kw = dict(WHISPER_ENGINE, enc_len=WHISPER_FRAMES, device=dev)
+    eng = Engine(params, cfg, recorder=EngineRecorder(), **eng_kw)
+    check(eng.chunk_tokens is None and not eng.share_ok,
+          "whisper engine: an enc-dec must prefill whole, unshared")
+    for frames, what in ((reqs[0].frames[:-100], "frames length"),
+                         (None, "no frames")):
+        try:
+            eng.submit(Request(rid="bad", tokens=reqs[0].tokens, max_new=2,
+                               frames=frames))
+        except ValueError as e:
+            check(what in str(e), f"whisper engine: {e}")
+        else:
+            check(False, f"whisper engine took a request with {what}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_launches("whisper engine", launches, {})
+    rep = eng.stats.report()
+    got = {c.rid: [int(t) for t in c.tokens] for c in comps}
+    check(len(comps) == len(reqs) and all(
+        len(got[r.rid]) == r.max_new for r in reqs),
+        "whisper engine: a request did not complete its budget")
+    # each request alone, teacher-forced on the engine's tokens, within
+    # twice the bf16 reach of its prefill (phase 13b's rule)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    compared, tied = 0, 0
+    for r in reqs:
+        prompt = torch.from_numpy(r.tokens.astype(np.int64)).to(dev)
+        extra = {"frames": r.frames[None]}
+        argmax, leads, last, _ = solo_forced(params, cfg, prompt,
+                                             got[r.rid], extra)
+        l32, _ = decode.prefill(params, cfg32, {"tokens": prompt[None],
+                                                **extra},
+                                len(prompt) + 1, last_only=True)
+        bar = 2 * float((last - l32[0, -1]).abs().max())
+        compared += solo_agrees("whisper engine", r.rid, got[r.rid], argmax,
+                                leads, bar)
+        tied += until_tie(leads, bar) < len(leads)
+    # encode and prefill alone, batch 1, synchronized
+    r0 = reqs[0]
+    b0 = {"tokens": torch.from_numpy(r0.tokens.astype(np.int64)).to(dev)[None],
+          "frames": r0.frames[None]}
+    enc_ms, pre_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tfm.encode(params, cfg, b0)
+        torch.cuda.synchronize()
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        decode.prefill(params, cfg, b0, WHISPER_ENGINE["max_len"],
+                       last_only=True)
+        torch.cuda.synchronize()
+        pre_ms.append(1e3 * (time.perf_counter() - t0))
+    prof = engine_profile(params, cfg, reqs, eng_kw, warm=4, n_ticks=4)
+    # the static f32 control on a batch of prompts and frames
+    nb, ns, nn = WHISPER_STATIC
+    prompt = torch.from_numpy(lm_synth.batch_at(lm_synth.LMDataConfig(
+        vocab=cfg.vocab, batch=nb, seq_len=ns, seed=0), 0)["tokens"]).to(dev)
+    extra = {"frames": torch.randn((nb, WHISPER_FRAMES, cfg.d_model),
+                                   generator=gen, device=dev)}
+    paths, times = static_paths(params, cfg, prompt, extra, nn)
+    out = dict(report=rep, run_s=run_s, launches=launches,
+               solo_clear_steps_compared=compared,
+               requests_with_a_near_tie=tied,
+               encode_ms_median=float(np.median(enc_ms)),
+               prefill_ms_median=float(np.median(pre_ms)),
+               decode_ms_per_tick=(prof.get("device_ms_per_decode_tick")
+                                   if prof else None),
+               decode_wall_ms_per_tick=(prof.get("wall_ms_per_decode_tick")
+                                        if prof else None),
+               static_decode_ms_median=float(np.median(times["step_ms"])),
+               tokens_per_s=rep["tokens_per_s"], profile=prof,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, **paths)
+    print_engine("phase 15a whisper-base engine", rep, prof, launches,
+                 f"; run {run_s:.3f} s, clear solo steps compared {compared}"
+                 f", encode (1 x {WHISPER_FRAMES} frames) "
+                 f"{out['encode_ms_median']:.2f} ms, prefill with it "
+                 f"{out['prefill_ms_median']:.2f} ms, static decode "
+                 f"{out['static_decode_ms_median']:.2f} ms a step of {nb}, "
+                 f"peak {out['peak_gb']:.2f} GB")
+    return out
+
+
+def vlm_path(cfg, prompt, vision):
+    """Phase 15b on ``cfg``: init, the static paths (prefill and decode
+    against forward, bf16 against the f32 control) with the patch
+    embeddings over the first positions. Returns the metrics with each
+    part's peak memory."""
+    peaks = {}
+    with peak_of(peaks, "init"):
+        params = tfm.init_model(0, cfg)
+    n = tfm.count_params(params)
+    check(n == tfm.count_params(tfm.init_model(0, cfg, device="meta")),
+          f"internvl2 at {cfg.n_layers} layers: {n:,} parameters")
+    with peak_of(peaks, "paths"):
+        metrics, times = static_paths(params, cfg, prompt,
+                                      {"vision_embeds": vision}, VLM_NEW)
+    # the patch embeddings reach the logits
+    with torch.no_grad(), peak_of(peaks, "forward_without_vision"):
+        plain = decode.prefill(params, cfg, {"tokens": prompt}, prompt.shape[1],
+                               last_only=True)[0]
+        seen = decode.prefill(params, cfg, {"tokens": prompt,
+                                            "vision_embeds": vision},
+                              prompt.shape[1], last_only=True)[0]
+        check(not torch.equal(plain, seen), "internvl2: the vision "
+              "embeddings do not change the logits")
+    del params
+    metrics.update(params=n, peaks_gb=peaks,
+                   peak_gb=max(peaks.values()), prefill_s=times["prefill_s"],
+                   decode_ms_median=float(np.median(times["step_ms"])),
+                   forward_s=times["forward_s"], forward_T=times["forward_T"])
+    return metrics
+
+
+def internvl2_phase(dev):
+    """Phase 15b: internvl2-76b at full width over the deepest cut of its 80
+    layers that fits, measured as phase 14c's mixtral."""
+    full = internvl2_76b.CONFIG.model
+    n_full = tfm.count_params(tfm.init_model(0, full, device="meta"))
+    check(n_full == INTERNVL2_PARAMS, f"internvl2-76b has {n_full:,} "
+          f"parameters, not {INTERNVL2_PARAMS:,}")
+    prompt = torch.from_numpy(lm_synth.batch_at(lm_synth.LMDataConfig(
+        vocab=full.vocab, batch=VLM_BATCH, seq_len=VLM_PROMPT, seed=0),
+        0)["tokens"]).to(dev)
+    vision = torch.randn((VLM_BATCH, full.n_vision_patches, full.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    cut, predicted, calib, card_gb = measured_cut(
+        lambda n: vlm_path(dataclasses.replace(full, n_layers=n), prompt,
+                           vision)["peaks_gb"], full.n_layers)
+    n0, n1 = CALIB
+    cfg = dataclasses.replace(full, n_layers=cut)
+    t0 = time.perf_counter()
+    m = vlm_path(cfg, prompt, vision)
+    m.update(cut=cut, full_params=n_full, calibration_peaks_gb=calib,
+             predicted_peak_gb=predicted, card_gb=card_gb,
+             path_s=time.perf_counter() - t0)
+    check(m["peak_gb"] <= MEM_SHARE * card_gb, f"internvl2: peak "
+          f"{m['peak_gb']:.2f} GB past {MEM_SHARE:.0%} of the card")
+    print(f"phase 15b internvl2-76b: {cut} of its {full.n_layers} layers "
+          f"({m['params']:,} of {n_full:,} parameters; d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_vision_patches} vision "
+          f"patches); largest part peak at {n0} and {n1} layers "
+          f"{max(calib[n0].values()):.2f} and {max(calib[n1].values()):.2f} "
+          f"GB, predicted at {cut} {predicted:.2f}, measured "
+          f"{m['peak_gb']:.2f} GB of {card_gb:.2f}; prefill "
+          f"{VLM_BATCH}x{VLM_PROMPT} {m['prefill_s']:.3f} s, decode "
+          f"{m['decode_ms_median']:.2f} ms a step, forward T="
+          f"{m['forward_T']} {m['forward_s']:.3f} s; prefill/decode vs "
+          f"forward bf16 {m['bf16_prefill_vs_forward_max_abs']:.3g}/"
+          f"{m['bf16_decode_vs_forward_max_abs']:.3g} (reach "
+          f"{m['bf16_bar']:.3g}), f32 {m['f32_prefill_vs_forward_max_abs']:.3g}"
+          f"/{m['f32_decode_vs_forward_max_abs']:.3g}")
+    return m
+
+
+def train_timing(step, n_sync, n_window, n_prof):
+    """``step()`` runs one training step. Milliseconds a step: the median
+    of ``n_sync`` steps each ending in a synchronize (none: NaN, for the
+    caller to fill) and the mean over a window of ``n_window`` steps with
+    one synchronize at its end; then the
+    device's busy time per step from a ``torch.profiler`` trace of
+    ``n_prof`` steps and its idle share of each."""
+    torch.cuda.synchronize()
+    t0, ends = time.perf_counter(), []
+    for _ in range(n_sync):
+        step()
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    sync_ms = (float(np.median(np.diff([t0] + ends))) * 1e3 if n_sync
+               else float("nan"))
+    t0 = time.perf_counter()
+    for _ in range(n_window):
+        step()
+    torch.cuda.synchronize()
+    window_ms = 1e3 * (time.perf_counter() - t0) / n_window
+    out = dict(step_ms_synchronized_median=sync_ms, step_ms_window=window_ms)
+    prof = tick_window(step, 0, n_prof)
+    if prof:
+        busy = prof["device_ms_per_tick"]
+        out.update(device_ms_per_step=busy,
+                   profiled_wall_ms_per_step=prof["wall_ms_per_tick"],
+                   idle_share_window=1 - busy / window_ms,
+                   idle_share_synchronized=1 - busy / sync_ms)
+    else:
+        out["device_ms_per_step"] = None    # not measured
+    return out
+
+
+def stepper(params, cfg, opt, batch_at):
+    """A ``train_timing`` step over ``make_train_step``, carrying its
+    params and state; ``batch_at(i)`` gives step i's batch."""
+    step_fn = make_train_step(cfg, opt, TrainConfig())
+    st = {"p": params, "s": opt.init(params), "i": 0, "losses": []}
+
+    def step():
+        st["p"], st["s"], m = step_fn(st["p"], st["s"], batch_at(st["i"]))
+        st["losses"].append(m["loss"])
+        st["i"] += 1
+    return step, st
+
+
+@contextlib.contextmanager
+def fused_calls(record):
+    """While active, ``record["calls"]`` counts calls of
+    ``ops.kan_spline_fused`` (the training forward's KAN layers) and
+    ``record["inputs"]`` keeps the first (x as rows [N, I], coeffs, asp)
+    per input shape."""
+    fn = ops.kan_spline_fused
+    record.setdefault("calls", 0)
+    record.setdefault("inputs", {})
+
+    def spy(x, coeffs, asp):
+        record["calls"] += 1
+        flat = x.detach().reshape(-1, x.shape[-1])
+        key = tuple(flat.shape)
+        if key not in record["inputs"]:
+            record["inputs"][key] = (flat.clone(), coeffs.detach().clone(),
+                                     asp)
+        return fn(x, coeffs, asp)
+    ops.kan_spline_fused = spy
+    try:
+        yield record
+    finally:
+        ops.kan_spline_fused = fn
+
+
+def kan_calls_per_step(cfg):
+    """``kan_spline_fused`` calls a training step makes, from the config:
+    each KAN-FFN's spline layers once in the forward and, with remat, once
+    more when the backward recomputes its block."""
+    n_ffn = sum(sp.ffn == "kan" for sp in cfg.layer_specs())
+    return n_ffn * cfg.kan_spec.n_layers * (2 if cfg.remat else 1)
+
+
+def grads_vs_cpu(params, cfg, batch):
+    """One step's gradients on the card against the CPU's plain run on the
+    same weights and batch, leaf by leaf. Both round in f32, in different
+    orders, so every entry is held to ``tests/test_torch_train.py``'s bar
+    (``atol 1e-5, rtol 1e-5``) plus twice the reach of f32 rounding on
+    these weights and tokens, measured on the CPU alone: the largest
+    distance, in the leaf, between the CPU's gradient and the same run
+    with float64 weights and compute dtype (its KAN spline sums and the
+    loss's softmax stay f32). Two f32 paths each within that reach of one
+    result are within twice it of each other (phase 13b's rule)."""
+    _, _, g_card = value_and_grad(tfm.loss_fn, params, cfg, batch)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    _, _, g_cpu = value_and_grad(
+        tfm.loss_fn, tfm.tree_map(lambda t: t.cpu(), params), cfg, cpu_batch)
+    _, _, g_64 = value_and_grad(
+        tfm.loss_fn, tfm.tree_map(lambda t: t.cpu().double(), params),
+        dataclasses.replace(cfg, dtype=torch.float64), cpu_batch)
+    n_past, worst_rel, worst_reach = 0, 0.0, 0.0
+    for a, b, c in zip(tfm.tree_leaves(g_card), tfm.tree_leaves(g_cpu),
+                       tfm.tree_leaves(g_64)):
+        a, b = a.cpu().double(), b.double()
+        reach = float((b - c).abs().max())
+        scale = max(float(b.abs().max()), 1e-30)
+        n_past += int(((a - b).abs() > GRAD_ATOL + GRAD_RTOL * b.abs()
+                       + 2 * reach).sum())
+        worst_rel = max(worst_rel, float((a - b).abs().max()) / scale)
+        worst_reach = max(worst_reach, reach / scale)
+    check(n_past == 0, f"{cfg.name}: card vs CPU gradients: {n_past} "
+          f"entries past the bar, worst {worst_rel:.3g} of the leaf's "
+          f"largest (f32 reach {worst_reach:.3g})")
+    return dict(grad_entries_past_bar=n_past,
+                grad_max_err_over_leaf_max=worst_rel,
+                grad_f32_reach_over_leaf_max=worst_reach)
+
+
+def kan_llm_training(timer, dev, ck):
+    """Phase 15c.1: ``kan_llm`` on ``fused`` through ``launch.train`` in
+    two runs (60 steps saving every 20, then resumed to 80), launch-counted
+    against the calls the code makes; ``kan_fused`` at the training shapes
+    against its plain version; one step's gradients against the CPU; the
+    step times. Returns the metrics, the kernel rows and the launches."""
+    cfg = dataclasses.replace(kan_llm.CONFIG.model, kan_backend="fused")
+    kt = KAN_TRAIN
+    argv = ["--arch", "kan_llm", "--kan-backend", "fused", "--batch",
+            str(kt["batch"]), "--seq", str(kt["seq"]), "--ckpt-dir", ck,
+            "--save-every", str(kt["save_every"]), "--log-every", "20"]
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches, rec = [], 0, {}
+    for steps in kt["steps"]:
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        with fused_calls(rec), contextlib.redirect_stdout(out):
+            runs.append(train_launch.main(argv + ["--steps", str(steps)]))
+        n = ops.launch_counts()
+        print(out.getvalue(), end="")
+        want = (steps - runs[-1]["start"]) * kan_calls_per_step(cfg)
+        check(n["kan_fused"] == want and rec["calls"] - launches == want,
+              f"kan_llm training: kan_fused launched {n['kan_fused']} times "
+              f"in {steps - runs[-1]['start']} steps, not {want}")
+        check_launches("kan_llm training", n, {"kan_fused": want})
+        launches += n["kan_fused"]
+    check("resumed from step 60" in out.getvalue() and runs[1]["start"] ==
+          kt["steps"][0], "kan_llm training: run 2 did not resume at 60")
+    losses = runs[0]["losses"] + runs[1]["losses"]
+    check(len(losses) == kt["steps"][1] and all(np.isfinite(losses)),
+          "kan_llm training: a loss is missing or not finite")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    check(last < first - 0.1, f"kan_llm training: loss {first:.4f} -> "
+          f"{last:.4f} did not fall")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # kan_fused at the training shapes, as phase 3 holds it
+    krows = []
+    for shape, (x, coeffs, asp) in sorted(rec["inputs"].items()):
+        codes, scale = quant.quantize_coeffs(coeffs, asp, axis=(0, 1))
+        layer = types.SimpleNamespace(codes=codes.contiguous(), scale=scale,
+                                      hemi=quant.hemi_for(asp, dev))
+        r = check_kan_fused(timer, f"train [{shape[0]}, {shape[1]}] -> "
+                            f"{codes.shape[-1]}", x, layer, asp)
+        r["on_path"] = False
+        krows.append(r)
+    # one step's gradients, card against CPU, on the twin's weights at init
+    dcfg = lm_synth.LMDataConfig(vocab=cfg.vocab, batch=kt["batch"],
+                                 seq_len=kt["seq"])
+    batch_at = lambda i: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                          for k, v in lm_synth.batch_at(dcfg, i).items()}
+    params = tfm.init_model(0, cfg)
+    grads = grads_vs_cpu(params, cfg, batch_at(0))
+    opt = make_optimizer("adamw", warmup_cosine(3e-4, 10, kt["steps"][1]))
+    step, st = stepper(params, cfg, opt, batch_at)
+    ops.reset_launch_counts()
+    timing = train_timing(step, *TRAIN_TIMING)
+    n = ops.launch_counts()["kan_fused"]
+    check(n == st["i"] * kan_calls_per_step(cfg), f"kan_llm timing: "
+          f"kan_fused launched {n} times in {st['i']} steps")
+    launches += n
+    out = dict(losses_first_last=[losses[0], losses[-1]],
+               loss_first10=first, loss_last10=last,
+               resumed_at=runs[1]["start"], launches=launches,
+               calls_per_step=kan_calls_per_step(cfg), peak_gb=peak,
+               **grads, **timing)
+    return out, krows, launches
+
+
+def whisper_training(dev):
+    """Phase 15c.2: whisper-base, 10 AdamW steps at lr 1e-3 on batches of
+    8 x 1500 frames and 448 tokens (each step synchronized), then the
+    window and the profile."""
+    cfg = whisper_base.CONFIG.model
+    wt = WHISPER_TRAIN
+    dcfg = lm_synth.LMDataConfig(vocab=cfg.vocab, batch=wt["batch"],
+                                 seq_len=wt["seq"])
+
+    def batch_at(i):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_synth.batch_at(dcfg, i).items()}
+        b.update(train_launch.stub_inputs(cfg, wt["batch"], wt["frames"], i,
+                                          dev))
+        return b
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_model(0, cfg)
+    opt = make_optimizer("adamw", lambda s: torch.tensor(wt["lr"]))
+    step, st = stepper(params, cfg, opt, batch_at)
+    ops.reset_launch_counts()
+    timing = train_timing(step, wt["steps"], *TRAIN_TIMING[1:])
+    check_launches("whisper training", ops.launch_counts(), {})
+    losses = [float(v) for v in st["losses"][:wt["steps"]]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.5,
+          f"whisper training: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return dict(losses=losses, peak_gb=torch.cuda.max_memory_allocated()
+                / 1e9, **timing)
+
+
+def mamba2_training(timer, dev):
+    """Phase 15c.3: mamba2-1.3b, all 48 layers, batches of 2 x 2048: every
+    leaf's gradient finite and nonzero; layer 0's SSD gradients through the
+    autograd Function against the plain chunked form's on the card, with
+    the Function's backward time beside the kernel's forward; then 5 AdamW
+    steps through ``launch.train`` (ssd_scan twice a layer a step: the
+    forward and the block's recompute), the window and the profile.
+    Returns the metrics, the ``ssd_scan`` row and its launches."""
+    cfg = mamba2_1p3b.CONFIG.model
+    mt = MAMBA_TRAIN
+    dcfg = lm_synth.LMDataConfig(vocab=cfg.vocab, batch=mt["batch"],
+                                 seq_len=mt["seq"])
+    batch_at = lambda i: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                          for k, v in lm_synth.batch_at(dcfg, i).items()}
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_model(0, cfg)
+    ops.reset_launch_counts()
+    loss, _, grads = value_and_grad(tfm.loss_fn, params, cfg, batch_at(0))
+    n_grad = ops.launch_counts()["ssd_scan"]
+    check(n_grad == 2 * cfg.n_layers, f"mamba2 gradients: ssd_scan launched "
+          f"{n_grad} times, not {2 * cfg.n_layers}")
+    dead = [i for i, g in enumerate(tfm.tree_leaves(grads))
+            if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    check(not dead and bool(torch.isfinite(loss)), f"mamba2 gradients: "
+          f"leaves {dead} not finite or all zero")
+    n_leaves = len(tfm.tree_leaves(grads))
+    del grads
+    # layer 0's scan through the Function against the plain form
+    s = layer0_scan_inputs(params, cfg, batch_at(0)["tokens"])
+    names = ("x", "dt", "a", "B", "C", "d_skip")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn(s["x"].shape, generator=gen, device=dev)
+    b, t, h, p = s["x"].shape
+    ds = torch.randn((b, h, p, s["B"].shape[-1]), generator=gen, device=dev)
+
+    def fn_grads(fn):
+        leaves = [s[k].detach().clone().requires_grad_() for k in names]
+        y, st_ = fn(*leaves, chunk=cfg.ssm_chunk)
+        return torch.autograd.grad((y, st_), leaves, (dy, ds))
+    got = fn_grads(ops.ssd_state)
+    want = fn_grads(ref.ssd_chunked_ref)
+    seq = fn_grads(lambda *a, chunk: ref.ssd_ref(*a))
+    worst, worst_seq = 0.0, 0.0
+    for k, g, w, q in zip(names, got, want, seq):
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"mamba2 layer 0: d{k} not finite or zero")
+        tol = SSD_ATOL + SSD_RTOL * w.abs()
+        worst = max(worst, float(((g - w).abs() / tol).max()))
+        worst_seq = max(worst_seq, float((g - q).abs().max())
+                        / float(q.abs().max()))
+    check(worst <= 1.0, f"mamba2 layer 0: Function gradients vs the plain "
+          f"form's: max err/tol {worst:.3g}")
+    check(worst_seq <= SSD_SEQ_GRAD_REL, f"mamba2 layer 0: Function "
+          f"gradients vs the sequential scan's: {worst_seq:.3g} of a leaf's "
+          f"largest")
+    row = check_ssd_scan(timer, f"train [{b}, {t}, {h}, {p}]", s,
+                         cfg.ssm_chunk)
+    row["grad_vs_plain_err_over_tol"] = worst
+    row["grad_vs_sequential_over_leaf_max"] = worst_seq
+    fwd_bwd = timer.ms(lambda: fn_grads(ops.ssd_state), reps=3, warmup=1)
+    row["function_forward_backward_ms"] = fwd_bwd
+    row["function_backward_ms"] = fwd_bwd - row["ms"]
+    row["plain_forward_backward_ms"] = timer.ms(
+        lambda: fn_grads(ref.ssd_chunked_ref), reps=3, warmup=1)
+    del s, got, want, seq, params
+    torch.cuda.empty_cache()
+    # 5 AdamW steps through the launcher, each synchronized by its log line
+    out_io = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(out_io):
+        run = train_launch.main(["--arch", "mamba2_1p3b", "--steps",
+                                 str(mt["steps"]), "--batch",
+                                 str(mt["batch"]), "--seq", str(mt["seq"]),
+                                 "--log-every", "1"])
+    print(out_io.getvalue(), end="")
+    n = ops.launch_counts()["ssd_scan"]
+    check_launches("mamba2 training", ops.launch_counts(),
+                   {"ssd_scan": 2 * cfg.n_layers * mt["steps"]})
+    check(all(np.isfinite(run["losses"])), "mamba2 training: loss not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    params = tfm.init_model(0, cfg)
+    opt = make_optimizer("adamw", warmup_cosine(3e-4, 10, 100))
+    step, st = stepper(params, cfg, opt, batch_at)
+    ops.reset_launch_counts()
+    timing = train_timing(step, 0, *MAMBA_TIMING)
+    n_t = ops.launch_counts()["ssd_scan"]
+    check(n_t == 2 * cfg.n_layers * st["i"], f"mamba2 timing: ssd_scan "
+          f"launched {n_t} times in {st['i']} steps")
+    timing["step_ms_synchronized_median"] = 1e3 * float(
+        np.median(run["step_s"][1:]))
+    if timing["device_ms_per_step"]:
+        timing["idle_share_synchronized"] = (
+            1 - timing["device_ms_per_step"]
+            / timing["step_ms_synchronized_median"])
+    out = dict(losses=run["losses"], leaves_with_gradient=n_leaves,
+               grad_vs_plain_err_over_tol=worst,
+               grad_vs_sequential_over_leaf_max=worst_seq, peak_gb=peak,
+               launches=n + n_grad + n_t, **timing)
+    return out, row, n + n_grad + n_t
+
+
+def training_phase(timer, dev):
+    """Phase 15c. Returns the metrics, the kernel rows and the launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        kan, krows, kl = kan_llm_training(timer, dev, str(Path(tmp) / "ck"))
+        kan["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whisper = whisper_training(dev)
+    whisper["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mamba, srow, sl = mamba2_training(timer, dev)
+    mamba["phase_s"] = time.perf_counter() - t0
+    for label, m in (("kan_llm (fused)", kan), ("whisper-base", whisper),
+                     ("mamba2-1.3b", mamba)):
+        dev_ms = m.get("device_ms_per_step")
+        print(f"phase 15c {label}: {m['step_ms_synchronized_median']:.2f} ms "
+              f"a step synchronized, {m['step_ms_window']:.2f} over the "
+              f"window, device "
+              + (f"{dev_ms:.2f} ms (idle {m['idle_share_window']:.3f} of the "
+                 f"window, {m['idle_share_synchronized']:.3f} synchronized)"
+                 if dev_ms else "not measured")
+              + f", peak {m['peak_gb']:.2f} GB")
+    return dict(kan_llm=kan, whisper=whisper, mamba2=mamba), krows, srow, \
+        kl, sl
 
 
 def main() -> int:
@@ -3654,6 +4300,50 @@ def main() -> int:
     r14c = mixtral_phase(dev)
     print("phase 14c: " + json.dumps(r14c))
     print(f"phase 14c: {time.perf_counter() - t0:.1f} s")
+
+    # 15. whisper-base served through the engine, internvl2-76b over a
+    # measured cut, and kan_llm, whisper-base and mamba2-1.3b trained, each
+    # run launch-counted
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    w15a = whisper_serve_phase(dev)
+    print("phase 15a: " + json.dumps(w15a))
+    print(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v15b = internvl2_phase(dev)
+    print("phase 15b: " + json.dumps(v15b))
+    print(f"phase 15b: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    t15c, krows15, srow15, kl15, sl15 = training_phase(timer, dev)
+    rows["kan_fused"].extend(krows15)
+    rows["ssd_scan"].append(srow15)
+    launches["kan_fused"] += kl15
+    launches["ssd_scan"] += sl15
+    for r in krows15:
+        print(f"kernel kan_fused {r['shape']}: max|err| {r['max_abs_err']:.3g}"
+              f", err/sum|terms| {r['max_err_over_sum_abs_terms']:.3g}, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f}, host "
+              f"{r['host_ms']:.4f} (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})")
+    print(f"kernel ssd_scan {srow15['shape']}: max|err| vs plain y "
+          f"{srow15['y_vs_plain_max_abs_err']:.3g}; err/tolerance vs plain y "
+          f"{srow15['y_vs_plain_err_over_tol']:.3g} state "
+          f"{srow15['state_vs_plain_err_over_tol']:.3g}; gradients through "
+          f"the Function vs the plain form's err/tolerance "
+          f"{srow15['grad_vs_plain_err_over_tol']:.3g}, vs the sequential "
+          f"scan's {srow15['grad_vs_sequential_over_leaf_max']:.3g} of a "
+          f"leaf's largest; forward "
+          f"{srow15['ms']:.4f} ms, the Function's backward "
+          f"{srow15['function_backward_ms']:.4f} ms (forward + backward "
+          f"{srow15['function_forward_backward_ms']:.4f}; the plain form's "
+          f"{srow15['plain_forward_backward_ms']:.4f}), plain forward "
+          f"{srow15['plain_ms']:.4f}, bound {srow15['bound_ms']:.4f} by "
+          f"{srow15['bound_by']}")
+    print("phase 15c: " + json.dumps(t15c))
+    print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
 
     # result lines
     kernels = []

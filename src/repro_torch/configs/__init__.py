@@ -2,10 +2,8 @@
 
 Each LM config module exports ``CONFIG`` (an ``ArchConfig`` with the
 published hyperparameters) and ``SMOKE`` (a reduced same-family config for
-CPU tests). Only the archs whose layers are ported are known to
-``get_arch``; the others raise, naming the ROADMAP slice that ports them.
-The CF-KAN configs (``cf_kan_1``, ``cf_kan_2``) export ``MODEL`` and
-``SMOKE_MODEL`` and are imported directly.
+CPU tests). The CF-KAN configs (``cf_kan_1``, ``cf_kan_2``) export
+``MODEL`` and ``SMOKE_MODEL`` as well.
 """
 from __future__ import annotations
 
@@ -25,13 +23,6 @@ ARCH_IDS = [
     "cf_kan_1", "cf_kan_2",
 ]
 AUX_ARCH_IDS = ["kan_llm", "kan_llm_int8"]
-# the LM archs whose every layer is ported
-PORTED = ("mamba2_1p3b", "mistral_nemo_12b", "phi3_medium_14b", "qwen2_72b",
-          "nemotron_4_340b", "recurrentgemma_2b", "mixtral_8x7b",
-          "kimi_k2_1t_a32b", "kan_llm", "kan_llm_int8")
-# the others, and the ROADMAP slice that ports them
-LATER = {"whisper_base": "D6 (encoder-decoder, cross attention)",
-         "internvl2_76b": "D6 (the vision stub)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,11 +68,19 @@ def get_arch(name: str, smoke: bool = False) -> ArchConfig:
     if name not in ARCH_IDS and name not in AUX_ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; available: "
                        f"{ARCH_IDS + AUX_ARCH_IDS}")
-    if name not in PORTED:
-        where = (f"ROADMAP Slice {LATER[name]}" if name in LATER else
-                 f"import repro_torch.configs.{name} directly")
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {list(PORTED)}): "
-            f"{where}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def lm_cells():
+    """All (arch, shape, applicable) dry-run cells for the 10 assigned LM
+    archs."""
+    cells = []
+    for a in ARCH_IDS:
+        if a.startswith("cf_kan"):
+            continue
+        cfg = get_arch(a)
+        for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            applicable = s in cfg.shapes()
+            cells.append((a, s, applicable))
+    return cells

@@ -2,8 +2,10 @@
 Uniform G=15 grids in both layers."""
 import dataclasses
 
+from repro_torch.configs import ArchConfig
 from repro_torch.core.quant import ASPConfig
 from repro_torch.models import cf_kan
+from repro_torch.models.transformer import ModelConfig
 
 MODEL = cf_kan.CFKANConfig(
     n_items=16384, hidden=101,
@@ -12,3 +14,11 @@ MODEL = cf_kan.CFKANConfig(
     name="cf-kan-2")
 
 SMOKE_MODEL = dataclasses.replace(MODEL, n_items=256, hidden=16)
+
+# ArchConfig shim so that the registry knows CF-KAN too (``MODEL`` is the
+# model)
+CONFIG = ArchConfig(model=ModelConfig(name="cf-kan-2", family="cfkan"),
+                    optimizer="adamw", learning_rate=1e-3,
+                    notes="paper's own arch; see MODEL")
+SMOKE = ArchConfig(model=ModelConfig(name="cf-kan-2", family="cfkan"),
+                   optimizer="adamw", learning_rate=1e-3)

@@ -643,10 +643,18 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, device=None):
     """A param tree given as nested dicts and lists of numpy arrays — e.g.
-    the JAX package's CF-KAN ``{"enc": {"coeffs", "w_base"}, ...}`` or LM
-    ``{"embed", "stages": [...]}`` moved to numpy — as the port's tree of
-    tensors on ``device`` (bf16 arrays become bf16 tensors)."""
+    the JAX package's CF-KAN ``{"enc": {"coeffs", "w_base"}, ...}``, an LM's
+    ``{"embed", "stages": [...]}`` (whisper's ``enc_stages``,
+    ``enc_final_norm``, ``dec_pos`` and cross attention included) or an
+    optimizer state, whose int8 moments are ``QTensor(codes, scale)``
+    named tuples — moved to numpy — as the port's tree of tensors on
+    ``device`` (bf16 arrays become bf16 tensors, a ``QTensor`` the port's
+    ``optim.QTensor``)."""
     device = resolve_device(device)
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == (
+            "codes", "scale"):
+        from repro_torch.optim.optimizers import QTensor
+        return QTensor(*(params_from_numpy(v, device) for v in tree))
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

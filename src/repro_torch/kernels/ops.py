@@ -10,7 +10,10 @@ There is no other branch and no fallback. The kernels count their launches;
 ``kan_spline_fused`` is the QAT autograd Function around the fused kernel
 (forward: quantised coefficients through the kernel; backward in plain
 torch: the straight-through float path for x, the exact quantised expanded
-basis for the coefficients).
+basis for the coefficients). ``ssd_state`` on the card is the same
+arrangement when an input requires a gradient: the ``ssd_scan`` kernel
+forward, and a backward that recomputes the plain chunked form and returns
+its VJP (the reference trains through that form, which JAX differentiates).
 """
 from __future__ import annotations
 
@@ -226,11 +229,49 @@ def ssd_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_skip,
                                    chunk=chunk, init_state=init_state)
+    inputs = (x, dt, a, b_mat, c_mat, d_skip, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _SsdScan.apply(*inputs, chunk)
+    return _ssd_scan_f32(*inputs, chunk)
+
+
+def _ssd_scan_f32(x, dt, a, b_mat, c_mat, d_skip, init_state, chunk):
+    """The kernel on f32 copies (or the tensors themselves) of its inputs."""
     f32 = torch.float32
     return _ssd.ssd_scan(
         x.to(f32), dt.to(f32), a.to(f32), b_mat.to(f32), c_mat.to(f32),
         None if d_skip is None else d_skip.to(f32), chunk=chunk,
         init_state=None if init_state is None else init_state.to(f32))
+
+
+class _SsdScan(torch.autograd.Function):
+    """``ssd_scan`` forward; the backward recomputes the plain chunked form
+    (``ref.ssd_chunked_ref``) from the saved inputs under autograd and
+    returns its VJP for x, dt, a, B, C, d_skip and init_state (each in its
+    input's dtype). Neither package has a backward kernel for the scan."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, d_skip, init_state, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, d_skip, init_state)
+        return _ssd_scan_f32(x, dt, a, b_mat, c_mat, d_skip, init_state,
+                             chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            inputs = [None if t is None else
+                      t.detach().requires_grad_(need[i])
+                      for i, t in enumerate(ctx.saved_tensors)]
+            y, final = ref.ssd_chunked_ref(*inputs[:6], chunk=ctx.chunk,
+                                           init_state=inputs[6])
+            wrt = [t for i, t in enumerate(inputs) if need[i]]
+            grads = iter(torch.autograd.grad((y, final), wrt, (dy, dfinal),
+                                             allow_unused=True))
+        return tuple(next(grads) if need[i] else None
+                     for i in range(7)) + (None,)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -7,6 +7,7 @@ compares the kernel with them on the same inputs.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -251,12 +252,15 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     xdt = xf * dtf[..., None]                             # [B,nc,cl,H,P]
 
     # intra-chunk: L[i,j,h] = exp(cs_i - cs_j) for i >= j. For i < j the
-    # difference is positive and exp() overflows to inf: select it away
-    # (exp(diff) * mask would give inf * 0 = NaN).
+    # difference is positive and exp() overflows to inf, so it is replaced
+    # by -inf before the exp: the same zeros as selecting exp(diff) away,
+    # and a finite gradient (selecting after the exp back-propagates
+    # 0 * inf = NaN through the overflowed entries)
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]    # [B,nc,cl,cl,H]
     tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), device=x.device))
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                  torch.full((), -math.inf,
+                                             device=x.device)))
     scores = torch.einsum("bcin,bcjn->bcij", cf, bf)      # [B,nc,cl,cl]
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * l_mat,
                           xdt)

@@ -176,8 +176,8 @@ def _combine(out: Tensor, combine_w: Tensor, slot_dst: Tensor) -> Tensor:
     which grow with the expert id; a dropped slot points past the buffer,
     at a zero row, and sorts last."""
     e, c, d = out.shape
-    rows = out.new_zeros((e * c + 1, d), dtype=torch.float32)
-    torch.mul(out, combine_w[..., None], out=rows[:-1].view(e, c, d))
+    rows = torch.cat([(out * combine_w[..., None]).reshape(e * c, d),
+                      out.new_zeros((1, d), dtype=torch.float32)])
     idx = torch.sort(slot_dst, dim=-1).values
     y = rows.new_zeros((slot_dst.shape[0], d))
     for j in range(idx.shape[1]):

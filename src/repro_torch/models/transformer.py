@@ -1,22 +1,27 @@
 """Unified LM (port of ``repro.models.transformer``): the config types, the
-stage grouping, init, forward, parameter counting and ``deploy_kan``, for
-decoder-only models whose layers mix with ``attn`` (full causal GQA),
-``swa`` (sliding window), ``local`` (Griffin local attention), ``bidir``
-(bidirectional), ``ssd`` or ``rglru`` (Griffin's RG-LRU) and whose FFN is
-``mlp``, ``moe`` (``models.moe``, on one device), ``kan`` (the paper's
-ASP-KAN-HAQ KAN-FFN through ``core.kan``) or none.
+stage grouping, init, forward, the training loss, parameter counting and
+``deploy_kan``, for decoder-only and encoder-decoder models whose layers mix
+with ``attn`` (full causal GQA), ``swa`` (sliding window), ``local``
+(Griffin local attention), ``bidir`` (bidirectional, the encoder's), ``ssd``
+or ``rglru`` (Griffin's RG-LRU), optionally followed by cross attention
+over the encoder's output, and whose FFN is ``mlp``, ``moe``
+(``models.moe``, on one device), ``kan`` (the paper's ASP-KAN-HAQ KAN-FFN
+through ``core.kan``) or none. The modality frontends are the reference's
+stubs: ``audio_stub`` takes precomputed frame embeddings plus sinusoidal
+positions as the encoder's input, ``vision_stub`` writes precomputed patch
+embeddings over the first positions of the token embedding.
 
 The parameter tree keeps the JAX layout, so weights carry across leaf by
 leaf (``params_from_numpy``): ``{"embed", "final_norm": {"scale"},
 "stages": [{"l0": {"mixer_norm", "attn": {...}, "ffn_norm", "mlp": ...}}]}``,
 each stage's leaves stacked on a leading ``[repeats]`` axis (a deployed
-KAN-FFN is one ``kan.DeployedKAN`` whose tensors carry that axis). Stages
-run as a Python loop over their repeats; JAX's ``remat``/``scan_layers``
-choices have no effect on the result and none here. Sharding
-(``dist.sharding.shard``) is Slice F.
-
-Other mixers, FFNs and families raise ``NotImplementedError`` naming the
-ROADMAP slice that ports them.
+KAN-FFN is one ``kan.DeployedKAN`` whose tensors carry that axis); an
+encoder-decoder adds ``enc_stages``, ``enc_final_norm`` and the decoder's
+learned positions ``dec_pos``, and its decoder layers ``cross_norm`` and
+``cross``. Stages run as a Python loop over their repeats; JAX's
+``remat``/``scan_layers`` choices have no effect on the result and none
+here. Sharding (``dist.sharding.shard``) and parameters packed for more
+than one model shard are ROADMAP Slice F.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import kan
@@ -38,30 +44,17 @@ from repro_torch.models import ssd as ssd_lib
 Tensor = torch.Tensor
 
 ATTN_MIXERS = ("attn", "swa", "local", "bidir")
-
-# what is not ported yet, and the ROADMAP slice that ports it
-LATER = {
-    "cross_attn": "Slice D6 (the other configs: cross attention, whisper)",
-    "encdec": "Slice D6 (the other configs: cross attention, whisper)",
-    "frontend": "Slice D6 (the other configs)",
-}
-
-
-def not_ported(what: str, name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {name!r} is not ported yet: "
-                               f"ROADMAP {LATER[name]}")
+MESH_SLICE = "ROADMAP Slice F (distribution)"
 
 
 def check_ported(spec: "LayerSpec") -> None:
-    """Raise for a layer with parts of a later slice: ported are the
-    attention, ``ssd`` and ``rglru`` mixers (or none) and the ``mlp``,
-    ``moe`` and ``kan`` FFNs (or none), without cross attention."""
+    """Raise ValueError for a layer part no package knows: the mixers are
+    the attention ones, ``ssd``, ``rglru`` or none, the FFNs ``mlp``,
+    ``moe``, ``kan`` or none (either with or without cross attention)."""
     if spec.mixer not in ATTN_MIXERS + ("ssd", "rglru", "none"):
-        raise not_ported("mixer", spec.mixer)
-    if spec.cross_attn:
-        raise not_ported("layer part", "cross_attn")
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     if spec.ffn not in ("mlp", "moe", "kan", "none"):
-        raise not_ported("ffn", spec.ffn)
+        raise ValueError(f"unknown ffn {spec.ffn!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +113,7 @@ class ModelConfig:
     # execution
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    remat: bool = True                   # no effect in the port
+    remat: bool = True                   # per-block recompute (autograd)
     scan_layers: bool = True
     attn_kv_chunk: int = 512
     # perf levers of the JAX package
@@ -306,10 +299,11 @@ def count_params(params) -> int:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_attn(gen, cfg: ModelConfig, device) -> Dict:
+def _init_attn(gen, cfg: ModelConfig, device, cross: bool = False) -> Dict:
     """Q/K/V/O projections [D, H, hd] / [H, hd, D]; with ``pad_attn_heads``
     the head counts are padded with zero heads (as in the reference; its
-    GQA grouping then follows the padded counts)."""
+    GQA grouping then follows the padded counts). Cross attention has no
+    qkv bias."""
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
     pdt = cfg.param_dtype
@@ -328,7 +322,7 @@ def _init_attn(gen, cfg: ModelConfig, device) -> Dict:
         wv = pad(wv, (0, 0, 0, hkv - cfg.n_kv_heads))
         wo = pad(wo, (0, 0, 0, 0, 0, hq - cfg.n_heads))
     p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((hq, hd), dtype=pdt, device=device)
         p["bk"] = torch.zeros((hkv, hd), dtype=pdt, device=device)
         p["bv"] = torch.zeros((hkv, hd), dtype=pdt, device=device)
@@ -360,6 +354,9 @@ def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device) -> Dict:
     elif spec.mixer == "rglru":
         p["mixer_norm"] = norm(cfg.d_model, device)
         p["rglru"] = rglru_lib.init_rglru_block(gen, cfg.rglru_cfg, device)
+    if spec.cross_attn:
+        p["cross_norm"] = norm(cfg.d_model, device)
+        p["cross"] = _init_attn(gen, cfg, device, cross=True)
     if spec.ffn == "mlp":
         p["ffn_norm"] = norm(cfg.d_model, device)
         p["mlp"] = _init_mlp(gen, cfg, device)
@@ -400,14 +397,17 @@ def generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
 
 
 def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
-               device=None) -> Dict:
+               device=None, n_model: int = 1) -> Dict:
     """Random weights in the JAX layout, drawn from ``seed`` (an int or a
     generator on ``device``). ``device=None`` is the card; ``"meta"`` gives
     shapes only (parameter counts at full width without allocating). MoE
-    experts are packed for one model shard (JAX's ``n_model=1``)."""
+    experts are packed for one model shard: ``n_model > 1`` (a mesh's
+    packing) is Slice F."""
     device = resolve_device(device)
-    if cfg.family == "encdec":
-        raise not_ported("family", "encdec")
+    if n_model != 1:
+        raise NotImplementedError(
+            f"parameters packed for {n_model} model shards are not ported "
+            f"yet: {MESH_SLICE}")
     gen = generator(seed, device)
     params: Dict[str, Any] = {
         "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model,
@@ -420,6 +420,14 @@ def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
             device=device)
     params["stages"] = [_init_stage(gen, st, cfg, device)
                         for st in stages_for(cfg)]
+    if cfg.family == "encdec":
+        params["enc_stages"] = [_init_stage(gen, st, cfg, device)
+                                for st in stages_for(cfg, encoder=True)]
+        params["enc_final_norm"] = layers.NORM_INIT[cfg.norm](cfg.d_model,
+                                                              device)
+        params["dec_pos"] = (layers.normal(
+            gen, (cfg.max_target_len, cfg.d_model), device) * 0.02
+            ).to(cfg.param_dtype)
     return params
 
 
@@ -441,9 +449,11 @@ def heads_out(o: Tensor, wo: Tensor, dtype) -> Tensor:
                          wo.to(dtype).reshape(h * k, d))
 
 
-def qkv(p, xn: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor, Tensor]:
-    """Q, K and V [B, S, H, hd] in the compute dtype, with their biases."""
-    a = p["attn"]
+def qkv(p, xn: Tensor, cfg: ModelConfig, which: str = "attn"
+        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Q, K and V [B, S, H, hd] in the compute dtype, with their biases
+    (``which="cross"``: the cross-attention projections of ``xn``)."""
+    a = p[which]
     q, k, v = (heads_in(xn, a[w], cfg.dtype) for w in ("wq", "wk", "wv"))
     if "bq" in a:
         q = q + a["bq"].to(cfg.dtype)
@@ -468,6 +478,24 @@ def _attn_mixer(p, x: Tensor, cfg: ModelConfig, spec: LayerSpec,
                                        causal=(spec.mixer != "bidir"),
                                        kv_chunk=cfg.attn_kv_chunk)
     return heads_out(o, p["attn"]["wo"], cfg.dtype)
+
+
+def cross_q(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The cross-attention queries of the normed stream."""
+    xn = layers.NORM_APPLY[cfg.norm](p["cross_norm"], x)
+    return heads_in(xn, p["cross"]["wq"], cfg.dtype)
+
+
+def cross_mixer(p, x: Tensor, cfg: ModelConfig, enc_out: Tensor
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Bidirectional attention of the decoder stream over the encoder's
+    output (``_cross_mixer``): (the residual update, and the cross K and V
+    that prefill caches, computed once per request)."""
+    ck = heads_in(enc_out, p["cross"]["wk"], cfg.dtype)
+    cv = heads_in(enc_out, p["cross"]["wv"], cfg.dtype)
+    o = attn_lib.chunked_attention(cross_q(p, x, cfg), ck, cv, causal=False,
+                                   kv_chunk=cfg.attn_kv_chunk)
+    return heads_out(o, p["cross"]["wo"], cfg.dtype), ck, cv
 
 
 def mlp_ffn(p, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -517,7 +545,8 @@ def apply_ffn(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig) -> Tensor:
 
 
 def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
-                 positions: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+                 positions: Tensor, enc_out: Optional[Tensor] = None
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     check_ported(spec)
     if spec.mixer in ATTN_MIXERS:
         x = x + _attn_mixer(p, x, cfg, spec, positions)
@@ -530,6 +559,8 @@ def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
         xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
         x = x + rglru_lib.apply_rglru_block(p["rglru"], xn, cfg.rglru_cfg
                                             ).to(x.dtype)
+    if spec.cross_attn and enc_out is not None:
+        x = x + cross_mixer(p, x, cfg, enc_out)[0]
     return apply_ffn_aux(p, x, spec, cfg)
 
 
@@ -545,36 +576,80 @@ def prescan_cast(stage_params, cfg: ModelConfig):
 
 
 def _run_stages(stage_params, stages: Sequence[Stage], x: Tensor,
-                cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
-    """Every layer in order, a stage's repeats in a Python loop. Returns
-    the stream and the aux loss: each block's MoE load-balance and z losses
-    summed from zero, layer by layer, then the blocks' sums added in order
-    (the reference's order)."""
+                cfg: ModelConfig, enc_out: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
+    """Every layer in order, a stage's repeats in a Python loop (decoder
+    layers with cross attention read ``enc_out``). Returns the stream and
+    the aux loss: each block's MoE load-balance and z losses summed from
+    zero, layer by layer, then the blocks' sums added in order (the
+    reference's order)."""
     if cfg.prescan_cast:
         stage_params = prescan_cast(stage_params, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled()
     for st_params, stage in zip(stage_params, stages):
+        remat = cfg.remat and grad and (x.requires_grad or any(
+            t.requires_grad for t in tree_leaves(st_params)))
         for r in range(stage.repeats):
             lp = st_params if stage.repeats == 1 else layer_of(st_params, r)
-            block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-            for i, spec in enumerate(stage.block):
-                x, aux = _apply_layer(lp[f"l{i}"], x, spec, cfg, positions)
-                for k in ("moe_load_balance", "moe_z"):
-                    if k in aux:
-                        block_aux = block_aux + aux[k]
+            if remat:
+                x, block_aux = torch.utils.checkpoint.checkpoint(
+                    _apply_block, lp, x, stage, cfg, positions, enc_out,
+                    use_reentrant=False)
+            else:
+                x, block_aux = _apply_block(lp, x, stage, cfg, positions,
+                                            enc_out)
             aux_total = aux_total + block_aux
     return x, aux_total
 
 
+def _apply_block(lp, x: Tensor, stage: Stage, cfg: ModelConfig,
+                 positions: Tensor, enc_out: Optional[Tensor]
+                 ) -> Tuple[Tensor, Tensor]:
+    """One repeat of a stage's block -> (x, the block's aux loss). Under
+    autograd with ``cfg.remat`` it runs inside ``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint`` per block: only the block's input is
+    kept, and the backward recomputes its forward."""
+    block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(stage.block):
+        x, aux = _apply_layer(lp[f"l{i}"], x, spec, cfg, positions, enc_out)
+        for k in ("moe_load_balance", "moe_z"):
+            if k in aux:
+                block_aux = block_aux + aux[k]
+    return x, block_aux
+
+
 def embed_inputs(params, cfg: ModelConfig, batch: Mapping) -> Tensor:
-    """Token embedding in the compute dtype (the modality stubs are not
-    ported)."""
-    if cfg.frontend != "none":
-        raise not_ported("frontend", "frontend")
+    """Token embedding and the modality stubs, in the compute dtype: with
+    ``audio_stub`` the encoder's input is ``batch["frames"]`` [B, T, D]
+    plus sinusoidal positions; with ``vision_stub`` a batch's
+    ``vision_embeds`` [B, P, D] replace the first P positions."""
     table = params["embed"]
+    if cfg.frontend == "audio_stub":
+        frames = torch.as_tensor(batch["frames"], device=table.device
+                                 ).to(cfg.dtype)
+        pos = layers.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                          device=frames.device)
+        return frames + pos.to(cfg.dtype)[None]
     tokens = torch.as_tensor(batch["tokens"], device=table.device)
-    return layers.embed_lookup(table, tokens).to(cfg.dtype)
+    x = layers.embed_lookup(table, tokens).to(cfg.dtype)
+    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+        ve = torch.as_tensor(batch["vision_embeds"], device=table.device
+                             ).to(cfg.dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    return x
+
+
+def embed_decoder(params, cfg: ModelConfig, tokens, positions) -> Tensor:
+    """An encoder-decoder's decoder input: token embedding plus the learned
+    ``dec_pos`` rows at ``positions`` ([S] for every row, or [B, 1] per
+    row), in the compute dtype."""
+    table = params["embed"]
+    tokens = torch.as_tensor(tokens, device=table.device)
+    x = layers.embed_lookup(table, tokens).to(cfg.dtype)
+    pe = params["dec_pos"][positions].to(cfg.dtype)
+    return x + (pe[None] if pe.ndim == 2 else pe)
 
 
 def logits_from(params, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -594,10 +669,62 @@ def forward(params, cfg: ModelConfig, batch: Mapping
     """Full forward -> (logits [B,S,V], aux loss scalar): the MoE layers'
     load-balance and router-z losses, 0 without MoE layers."""
     if cfg.family == "encdec":
-        raise not_ported("family", "encdec")
+        return _forward_encdec(params, cfg, batch)
     x = embed_inputs(params, cfg, batch)
     x, aux = _run_stages(params["stages"], stages_for(cfg), x, cfg)
     return logits_from(params, cfg, x), aux
+
+
+def encode(params, cfg: ModelConfig, batch: Mapping) -> Tensor:
+    """The encoder's output [B, T, D]: the frontend's input through the
+    bidirectional encoder stages and ``enc_final_norm``."""
+    x = embed_inputs(params, cfg, batch)
+    x, _ = _run_stages(params["enc_stages"], stages_for(cfg, encoder=True),
+                       x, cfg)
+    return layers.NORM_APPLY[cfg.norm](params["enc_final_norm"], x)
+
+
+def _forward_encdec(params, cfg: ModelConfig, batch: Mapping
+                    ) -> Tuple[Tensor, Tensor]:
+    """Encode, then the decoder over tokens plus ``dec_pos`` with cross
+    attention; the tied embedding unembeds (the reference's: no softcap,
+    no separate table)."""
+    enc_out = encode(params, cfg, batch)
+    tokens = torch.as_tensor(batch["tokens"], device=enc_out.device)
+    x = embed_decoder(params, cfg, tokens,
+                      torch.arange(tokens.shape[1], device=enc_out.device))
+    x, aux = _run_stages(params["stages"], stages_for(cfg), x, cfg,
+                         enc_out=enc_out)
+    x = layers.NORM_APPLY[cfg.norm](params["final_norm"], x)
+    return layers.unembed(x, params["embed"].to(cfg.dtype)), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Mapping
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token cross entropy over ``batch["labels"]`` (masked by an
+    optional ``loss_mask``) plus the aux loss -> (total, {"ce", "aux"}).
+
+    ``ce_impl="gather"``: log_softmax and the label's entry. ``"onehot"``:
+    the reference's sharded-safe form, the logits less their (detached)
+    max, logsumexp, and the label logit picked by a one-hot mask."""
+    logits, aux = forward(params, cfg, batch)
+    lf = logits.to(torch.float32)
+    labels = torch.as_tensor(batch["labels"], device=lf.device).long()
+    if cfg.ce_impl == "onehot":
+        shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+        onehot = (torch.arange(lf.shape[-1], device=lf.device)
+                  == labels[..., None])
+        label_logit = torch.sum(torch.where(onehot, shifted, 0.0), dim=-1)
+        ll = label_logit - lse
+    else:
+        logp = torch.log_softmax(lf, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(ll) if mask is None else
+            torch.as_tensor(mask, device=ll.device).to(ll.dtype))
+    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -14,17 +14,22 @@ Cache layouts per layer (stacked [repeats, ...] inside a repeated stage):
                 (``models.ssd.ssd_chunked``), which also gives the final
                 state the cache keeps;
   rglru       — the hidden state [B, dr] f32 and the conv buffer [B, K-1,
-                dr] of pre-conv inputs in the compute dtype.
+                dr] of pre-conv inputs in the compute dtype;
+  cross       — an encoder-decoder's cross-attention K/V ``ck``/``cv``
+                [B, T_enc, Kv, hd], computed once at prefill from the
+                encoder's output and read-only at decode.
 A ``bidir`` mixer has no cache and, as in the reference, prefill and decode
-skip it (it serves an encoder, which is Slice D6).
+skip it (it is the encoder's, which prefill runs once through
+``transformer.encode``).
 
 Paged serving (the continuous-batching engine's layout, ``serve.engine``):
 full-attention K/V lives in a shared page pool instead of per-slot rows.
 ``init_paged_cache`` builds [n_pages, page_size, Kv, hd] pools for every
 ``attn`` layer (one page-id space indexes all of them); SWA/local rings,
-SSD/RG-LRU state and conv buffers stay per slot. ``decode_step(...,
-pages=[B, P])`` routes reads and writes through the page tables, and
-``prefill_chunk`` consumes a prompt one page-aligned chunk at a time.
+SSD/RG-LRU state, conv buffers and cross-attention K/V stay per slot.
+``decode_step(..., pages=[B, P])`` routes reads and writes through the
+page tables, and ``prefill_chunk`` consumes a prompt one page-aligned
+chunk at a time.
 ``chunk_tokens_for`` gives the largest chunk that keeps the math identical
 to a solo run, or None for families that prefill in one piece. Unlike the
 reference, which returns new caches (donated, so XLA writes them in
@@ -34,6 +39,7 @@ of it. The static-batch functions still return new caches.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -61,30 +67,39 @@ def _kv_len(spec: LayerSpec, cfg: ModelConfig, max_len: int
 
 
 def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
-                      max_len: int, device) -> Dict[str, Tensor]:
+                      max_len: int, device, enc_len: int = 0
+                      ) -> Dict[str, Tensor]:
     tfm.check_ported(spec)
+    c: Dict[str, Tensor] = {}
+    kv_shape = (cfg.padded_kv_heads, cfg.resolved_head_dim)
     if spec.mixer in ("attn", "swa", "local"):
         t, _ = _kv_len(spec, cfg, max_len)
-        shape = (batch, t, cfg.padded_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-    if spec.mixer == "ssd":
-        return ssd_lib.init_ssd_cache(batch, cfg.ssd_cfg, cfg.dtype, device)
-    if spec.mixer == "rglru":
-        return rglru_lib.init_rglru_cache(batch, cfg.rglru_cfg, cfg.dtype,
-                                          device)
-    return {}
+        for k in ("k", "v"):
+            c[k] = torch.zeros((batch, t) + kv_shape, dtype=cfg.dtype,
+                               device=device)
+    elif spec.mixer == "ssd":
+        c.update(ssd_lib.init_ssd_cache(batch, cfg.ssd_cfg, cfg.dtype,
+                                        device))
+    elif spec.mixer == "rglru":
+        c.update(rglru_lib.init_rglru_cache(batch, cfg.rglru_cfg, cfg.dtype,
+                                            device))
+    if spec.cross_attn:
+        for k in ("ck", "cv"):
+            c[k] = torch.zeros((batch, enc_len) + kv_shape, dtype=cfg.dtype,
+                               device=device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> list:
+               device=None, enc_len: int = 0) -> list:
     """Cache tree parallel to params["stages"] (``device=None``: the
     card). ``max_len`` sizes the attention caches; SSD layers keep O(1)
-    state."""
+    state; ``enc_len`` sizes the cross-attention K/V."""
     device = resolve_device(device)
     out = []
     for stage in tfm.stages_for(cfg):
-        blk = {f"l{i}": _init_layer_cache(sp, cfg, batch, max_len, device)
+        blk = {f"l{i}": _init_layer_cache(sp, cfg, batch, max_len, device,
+                                          enc_len)
                for i, sp in enumerate(stage.block)}
         if stage.repeats > 1:
             blk = tfm.tree_map(lambda x, r=stage.repeats: x[None].repeat(
@@ -94,13 +109,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
-                     page_size: int, n_pages: int, device=None) -> list:
+                     page_size: int, n_pages: int, device=None,
+                     enc_len: int = 0) -> list:
     """Cache tree of the paged serving engine (``device=None``: the card).
     As ``init_cache``, except that every full-attention layer's K/V is a
     shared page pool [n_pages, page_size, Kv, hd]: slots address it through
     page tables (``pages`` in ``decode_step``), so memory scales with live
     tokens, not ``n_slots * max_len``. Every other leaf keeps its per-slot
-    [n_slots, ...] rows."""
+    [n_slots, ...] rows (cross-attention K/V of ``enc_len`` rows
+    included)."""
     device = resolve_device(device)
     pool_shape = (n_pages, page_size, cfg.padded_kv_heads,
                   cfg.resolved_head_dim)
@@ -108,14 +125,14 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
     for stage in tfm.stages_for(cfg):
         blk = {}
         for i, sp in enumerate(stage.block):
+            # an attn layer's K/V are the pools, not per-slot rows
+            c = _init_layer_cache(
+                dataclasses.replace(sp, mixer="none") if sp.mixer == "attn"
+                else sp, cfg, n_slots, max_len, device, enc_len)
             if sp.mixer == "attn":
-                tfm.check_ported(sp)
-                blk[f"l{i}"] = {k: torch.zeros(pool_shape, dtype=cfg.dtype,
-                                               device=device)
-                                for k in ("k", "v")}
-            else:
-                blk[f"l{i}"] = _init_layer_cache(sp, cfg, n_slots, max_len,
-                                                 device)
+                c.update({k: torch.zeros(pool_shape, dtype=cfg.dtype,
+                                         device=device) for k in ("k", "v")})
+            blk[f"l{i}"] = c
         if stage.repeats > 1:
             blk = tfm.tree_map(lambda x, r=stage.repeats: x[None].repeat(
                 (r,) + (1,) * x.ndim), blk)
@@ -199,7 +216,17 @@ def _decode_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
                              "conv_buf": cache["conv_buf"]}, cfg.rglru_cfg)
         new_cache.update(rc)
         x = x + y.to(x.dtype)
+    if spec.cross_attn:
+        x = x + _cross_decode(p, cache, x, cfg)
     return tfm.apply_ffn(p, x, spec, cfg), new_cache
+
+
+def _cross_decode(p, cache, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Cross attention of the decoded token over the cached encoder K/V
+    (every encoder row valid)."""
+    o = attn_lib.decode_attention(tfm.cross_q(p, x, cfg), cache["ck"],
+                                  cache["cv"], cache["ck"].shape[1])
+    return tfm.heads_out(o, p["cross"]["wo"], cfg.dtype)
 
 
 def _run_layers(params, cache, x: Tensor, cfg: ModelConfig, layer_fn
@@ -280,6 +307,8 @@ def _decode_layer_paged(p, cache, x: Tensor, spec: LayerSpec,
                                   attn_lib.paged_gather(cache["v"], pages),
                                   index + 1)
     x = x + tfm.heads_out(o, p["attn"]["wo"], cfg.dtype)
+    if spec.cross_attn:
+        x = x + _cross_decode(p, cache, x, cfg)
     return tfm.apply_ffn(p, x, spec, cfg)
 
 
@@ -295,12 +324,18 @@ def decode_step(params, cache, tokens: Tensor, index, cfg: ModelConfig, *,
     full-attention layer read and write the shared page pool; the cache
     must come from ``init_paged_cache``, and is written in place and
     returned. Inactive slots point every entry at the garbage page, so
-    their writes touch no live page."""
-    if cfg.family == "encdec":
-        raise tfm.not_ported("family", "encdec")
+    their writes touch no live page. An encoder-decoder adds the decoder's
+    learned position ``dec_pos[index]`` to the token embedding and reads
+    the cached cross K/V."""
     table = params["embed"]
-    x = layers.embed_lookup(table, torch.as_tensor(tokens, device=table.device)
-                            ).to(cfg.dtype)
+    tokens = torch.as_tensor(tokens, device=table.device)
+    if cfg.family == "encdec":
+        pos = _decode_positions(index if isinstance(index, int) else
+                                torch.as_tensor(index, device=table.device),
+                                table.device)
+        x = tfm.embed_decoder(params, cfg, tokens, pos)
+    else:
+        x = layers.embed_lookup(table, tokens).to(cfg.dtype)
     if pages is not None:
         pages = torch.as_tensor(pages, device=x.device)
         index = torch.as_tensor(index, device=x.device).expand(x.shape[0])
@@ -366,7 +401,8 @@ def _ring_cache(k: Tensor, t_cache: int, dtype) -> Tensor:
 
 
 def _prefill_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
-                   positions: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+                   positions: Tensor, enc_out: Optional[Tensor] = None
+                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     tfm.check_ported(spec)
     new_cache = dict(cache)
     if spec.mixer in ("attn", "swa", "local"):
@@ -397,6 +433,10 @@ def _prefill_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
         y, rc = _rglru_prefill(p["rglru"], xn, cfg)
         new_cache.update(rc)
         x = x + y.to(x.dtype)
+    if spec.cross_attn and enc_out is not None:
+        y, new_cache["ck"], new_cache["cv"] = tfm.cross_mixer(p, x, cfg,
+                                                              enc_out)
+        x = x + y
     return tfm.apply_ffn(p, x, spec, cfg), new_cache
 
 
@@ -404,15 +444,24 @@ def prefill(params, cfg: ModelConfig, batch: Mapping, max_len: int,
             last_only: bool = False) -> Tuple[Tensor, list]:
     """Run the prompt, return (logits, cache at position S). With
     ``last_only`` only the final position is unembedded: the full [B,S,V]
-    logits never exist."""
+    logits never exist. ``batch`` holds ``tokens`` and, for the frontend
+    stubs, ``frames`` (an encoder-decoder, which encodes them once and
+    then runs the decoder on the tokens plus ``dec_pos``) or
+    ``vision_embeds``."""
+    enc_out = None
     if cfg.family == "encdec":
-        raise tfm.not_ported("family", "encdec")
-    x = tfm.embed_inputs(params, cfg, batch)
-    cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
+        enc_out = tfm.encode(params, cfg, batch)
+        tokens = torch.as_tensor(batch["tokens"], device=enc_out.device)
+        x = tfm.embed_decoder(params, cfg, tokens, torch.arange(
+            tokens.shape[1], device=enc_out.device))
+    else:
+        x = tfm.embed_inputs(params, cfg, batch)
+    cache = init_cache(cfg, x.shape[0], max_len, device=x.device,
+                       enc_len=0 if enc_out is None else enc_out.shape[1])
     positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches = _run_layers(
-        params, cache, x, cfg,
-        lambda p, c, xx, sp: _prefill_layer(p, c, xx, sp, cfg, positions))
+        params, cache, x, cfg, lambda p, c, xx, sp: _prefill_layer(
+            p, c, xx, sp, cfg, positions, enc_out))
     if last_only:
         x = x[:, -1:]
     return tfm.logits_from(params, cfg, x), new_caches

@@ -22,8 +22,11 @@ Design (the reference's, on one device)
 * **Chunked prefill**: chunk-exact families (``decode.chunk_tokens_for``:
   pure attention, attention + SSD) consume a prompt one page-aligned chunk
   per tick, interleaved with the fused decode, so a long prompt does not
-  block running requests. Other families (RG-LRU, SWA/local windows)
-  prefill whole, into the paged pool, in one tick.
+  block running requests. Other families (RG-LRU, SWA/local windows, MoE,
+  encoder-decoder, frontends) prefill whole, into the paged pool, in one
+  tick. An encoder-decoder's requests bring their encoder input
+  (``Request.frames``, ``enc_len`` rows each); its cross-attention K/V
+  stays in per-slot rows.
 * **Fused multi-slot decode**: every tick runs ONE ``decode_step`` over all
   N slots with per-slot index and page-table vectors. Inactive and
   prefilling slots flow through with index 0 and all-garbage tables.
@@ -166,6 +169,8 @@ class Engine:
                   admission block on pages.
     queue       : optional AdmissionQueue (bounded => backpressure).
     eos_id      : engine-wide EOS (``Request.eos_id`` overrides).
+    enc_len     : encoder-decoder only: the encoder length every request's
+                  ``frames`` must have.
     device      : where the params (moved there) and the cache live;
                   ``None`` is the card, ``"cpu"`` the CPU.
     recorder    : optional ``repro_torch.obs.EngineRecorder``; the default
@@ -176,7 +181,8 @@ class Engine:
                  max_len: int, page_size: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  queue: Optional[AdmissionQueue] = None,
-                 eos_id: Optional[int] = None, device=None, recorder=None):
+                 eos_id: Optional[int] = None, enc_len: int = 0,
+                 device=None, recorder=None):
         self.device = resolve_device(device)
         params = tfm.tree_map(
             lambda t: t.to(self.device) if isinstance(t, torch.Tensor)
@@ -188,6 +194,7 @@ class Engine:
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
+        self.enc_len = enc_len
         self.queue = queue if queue is not None else AdmissionQueue()
         self.eos_id = eos_id
         self.stages = tfm.stages_for(cfg)
@@ -209,7 +216,8 @@ class Engine:
         self.share_ok = dec.prefix_sharing_ok(cfg)
         self.cache = dec.init_paged_cache(cfg, n_slots, max_len,
                                           page_size=page_size,
-                                          n_pages=n_pages, device=self.device)
+                                          n_pages=n_pages, device=self.device,
+                                          enc_len=enc_len)
 
         # host-side per-slot state
         self.active = np.zeros(n_slots, dtype=bool)       # decoding
@@ -253,9 +261,12 @@ class Engine:
             self._profilers[key] = obs_profile.JitProfiler(fn, name, self.obs)
         return self._profilers[key]
 
-    def _prefill_for(self, prompt_len: int):
+    def _prefill_for(self, prompt_len: int, enc_len: int):
+        name = f"prefill_len{prompt_len}"
+        if enc_len:
+            name += f"_enc{enc_len}"
         return self._profiled(
-            ("prefill", prompt_len), f"prefill_len{prompt_len}",
+            ("prefill", prompt_len, enc_len), name,
             functools.partial(_prefill_fn, cfg=self.cfg,
                               max_len=self.max_len))
 
@@ -275,8 +286,9 @@ class Engine:
 
     def validate_request(self, req: Request) -> None:
         """Raise ValueError for a request this engine's geometry can never
-        serve: non-positive budget, over-length against the slot cache, or
-        worst-case page demand beyond the pool."""
+        serve: non-positive budget, over-length against the slot cache,
+        worst-case page demand beyond the pool, or an encoder-decoder's
+        frames mismatch."""
         s = int(np.asarray(req.tokens).shape[-1])
         if req.max_new < 1:
             raise ValueError(f"request {req.rid!r}: max_new must be >= 1")
@@ -290,7 +302,18 @@ class Engine:
                 f"{self._worst_case_pages(s, req.max_new)} pages but the "
                 f"pool only has {self.n_pages - 1} allocatable pages")
         if req.frames is not None:
-            raise tfm.not_ported("family", "encdec")
+            f = int(np.shape(req.frames)[-2])
+            if f != self.enc_len:
+                # a shorter write would fill only f of the enc_len rows,
+                # and cross attention reads them all: zero (or a previous
+                # occupant's) encoder K/V would enter the softmax
+                raise ValueError(
+                    f"request {req.rid!r}: frames length {f} != engine "
+                    f"enc_len {self.enc_len}")
+        elif self.enc_len:
+            raise ValueError(f"request {req.rid!r}: engine was built with "
+                             f"enc_len={self.enc_len} but request has no "
+                             "frames")
 
     def submit(self, req: Request) -> bool:
         """Queue a request. False = backpressure (bounded queue full).
@@ -369,7 +392,14 @@ class Engine:
         pages_row = torch.from_numpy(self.slot_pages[slot]).to(self.device)
         if self.chunk_tokens is None:
             toks = torch.from_numpy(prompt).to(self.device)[None]
-            tok0, solo = self._prefill_for(s)(self.params, {"tokens": toks})
+            batch = {"tokens": toks}
+            frames = self.slot_req[slot].frames
+            enc_len = 0
+            if frames is not None:
+                batch["frames"] = torch.as_tensor(frames,
+                                                  device=self.device)[None]
+                enc_len = batch["frames"].shape[1]
+            tok0, solo = self._prefill_for(s, enc_len)(self.params, batch)
             self.cache = self._scatter(self.cache, solo, slot, pages_row)
             return self._finish_prefill(slot, int(tok0[0]))
         pos = int(self.slot_pos[slot])

@@ -56,6 +56,18 @@ FULL_WIDTH_PARAMS = {"kan_llm": 3_926_272,
 B, S = 2, 24
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs on the CPU: the suite
+    runs several pytest workers at once, and every worker's torch threads
+    contending for the same cores made second-long tests take minutes."""
+    n = torch.get_num_threads()
+    if not torch.cuda.is_available():
+        torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package, imported only by the parity cases."""
@@ -543,16 +555,19 @@ def test_padded_heads_regroup_as_in_the_reference(jx):
 
 
 def test_unported_options_still_raise():
-    """Cross attention and the encoder-decoder family wait for Slice D6;
-    a list of prompts and paged decode for the engine (Slice E)."""
+    """Parameters packed for more than one model shard wait for Slice F;
+    cross attention and the encoder-decoder family are ported (their
+    parity is ``test_torch_encdec.py``'s)."""
     cfg = dataclasses.replace(
         tconfigs.get_arch("mistral_nemo_12b", smoke=True).model,
         block_pattern=(ttfm.LayerSpec("attn", "mlp", cross_attn=True),))
-    with pytest.raises(NotImplementedError, match="Slice D6"):
-        ttfm.init_model(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice D6"):
-        ttfm.init_model(0, dataclasses.replace(cfg, family="encdec"),
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice F"):
+        ttfm.init_model(0, cfg, device="cpu", n_model=2)
+    assert "cross" in ttfm.init_model(0, cfg, device="cpu"
+                                      )["stages"][0]["l0"]
+    assert "enc_stages" in ttfm.init_model(
+        0, dataclasses.replace(cfg, family="encdec", n_enc_layers=1),
+        device="cpu")
 
 
 # --- on the card ---------------------------------------------------------------

@@ -38,6 +38,7 @@ from repro_torch.core import quant as tq  # noqa: E402
 from repro_torch.data import cf_synth as tsyn  # noqa: E402
 from repro_torch.hw import cim as tcim  # noqa: E402
 from repro_torch.models import cf_kan as tcf  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 N_ITEMS, HIDDEN = 128, 16
 CIM = dict(array_size=256, gamma0=0.08)

@@ -33,6 +33,7 @@ from repro_torch.hw import cost_model as tcost, input_gen as tig  # noqa: E402
 from repro_torch.hw import tiles as ttiles, variation as tvar  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
 from repro_torch.models import cf_kan as tcf  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 TILED_FIELDS = ("w_phys", "gain", "logical_of_phys", "valid",
                 "phys_of_logical")

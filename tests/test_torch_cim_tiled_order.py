@@ -51,6 +51,7 @@ from repro_torch.kernels import build as tbuild  # noqa: E402
 from repro_torch.kernels import cim_mac as tcm, ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import cf_kan as tcf  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 
 def _kernel_blocking(names=("kGroup", "kChunk", "kAhead", "kColWarps",

@@ -47,6 +47,7 @@ from repro_torch.serve import decode as tdec  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve.scheduler import (AdmissionQueue,  # noqa: E402
                                          Request)
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 F32_BAR = 2e-4
 BF16_REL = 2 ** -6
@@ -481,7 +482,9 @@ def test_unported_paths_raise():
         is eng
     with pytest.raises(ValueError, match="adopt_compiled"):
         eng.adopt_compiled(_engine(params, m, n_slots=2, max_len=12))
-    with pytest.raises(NotImplementedError, match="encdec"):
+    # frames on an engine without an encoder: JAX's frames-length refusal
+    with pytest.raises(ValueError, match="frames length 3 != engine "
+                       "enc_len 0"):
         eng.submit(Request(rid=0, tokens=np.arange(4), max_new=2,
                            frames=np.zeros((3, 4))))
     with pytest.raises(ValueError, match="idle"):

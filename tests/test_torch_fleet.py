@@ -36,6 +36,7 @@ from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.obs import EngineRecorder, MetricsRegistry  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve.scheduler import Request  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 TICK_SLOTS = 16
 

@@ -28,6 +28,7 @@ from repro_torch.hw.tiles import TileConfig  # noqa: E402
 from repro_torch.hw.variation import (DriftConfig,  # noqa: E402
                                       VariationConfig, drift_gain)
 from repro_torch.obs import MetricsRegistry  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 TILE = TileConfig(array_size=64, tile_cols=16)
 SHAPE = (8, 4)

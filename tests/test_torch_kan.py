@@ -28,6 +28,7 @@ from repro.hw import cim as jcim  # noqa: E402
 from repro_torch.core import kan as tk, kan_sam as tsam  # noqa: E402
 from repro_torch.core import quant as tq  # noqa: E402
 from repro_torch.hw import cim as tcim  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 ARTIFACT_FIELDS = ("codes", "scale", "hemi", "w_base", "atten", "row_order",
                    "slices")

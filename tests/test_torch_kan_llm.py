@@ -42,6 +42,7 @@ from repro_torch.kernels import kan_fused as tkf  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.serve import decode as tdec  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 F32_BAR = 2e-4
 BF16_REL = 2 ** -6

@@ -15,6 +15,7 @@ pytest.importorskip("jax")
 
 from repro.core import quant as jq  # noqa: E402
 from repro_torch.core import quant as tq  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 
 def _split(t):

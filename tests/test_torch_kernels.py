@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import quant as tq  # noqa: E402
 from repro_torch.kernels import kan_fused as tkf  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 KAN_SHAPES = [(8, 8, 8), (37, 23, 50), (128, 64, 128), (5, 130, 3)]
 # (G, K, (B, I, O)): every grid on every shape in cubic order, and the

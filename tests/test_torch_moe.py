@@ -33,6 +33,7 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.serve import decode as tdec  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 F32_BAR = 2e-4
 MIXTRAL_PARAMS = 46_571_720_704
@@ -377,7 +378,7 @@ def test_configs_match_the_reference(jx):
                 k: v for k, v in jd.items() if k != "dtype"}
             assert [dataclasses.astuple(s) for s in t.layer_specs()] == [
                 dataclasses.astuple(s) for s in j.layer_specs()]
-        assert name in tconfigs.PORTED and name not in tconfigs.LATER
+        assert name in tconfigs.ARCH_IDS
 
 
 # --- cuda --------------------------------------------------------------------

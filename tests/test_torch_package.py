@@ -18,11 +18,13 @@ from repro_torch.examples import kan_neurosim_search  # noqa: E402
 from repro_torch.examples import quickstart, train_cf_kan  # noqa: E402
 from repro_torch.examples import serve_kan_llm  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import mamba2_1p3b  # noqa: E402
 from repro_torch.models import cf_kan  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import decode, engine  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 SERVING_MODULES = ("serve.engine", "serve.paging", "serve.scheduler",
@@ -33,6 +35,9 @@ SERVING_MODULES = ("serve.engine", "serve.paging", "serve.scheduler",
                    "serve.router", "hw.health", "dist", "dist.fault",
                    "models.moe", "configs.mixtral_8x7b",
                    "configs.kimi_k2_1t_a32b")
+TRAINING_MODULES = ("optim", "optim.optimizers", "train.train_step",
+                    "checkpoint.checkpoint", "launch.train",
+                    "configs.whisper_base", "configs.internvl2_76b")
 
 
 def test_imports_with_jax_and_repro_blocked():
@@ -59,8 +64,9 @@ def test_imports_with_jax_and_repro_blocked():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 15
-    # the serving slice's modules among them
-    assert {f"repro_torch.{m}" for m in SERVING_MODULES} <= names
+    # the serving and the training slices' modules among them
+    assert {f"repro_torch.{m}" for m in SERVING_MODULES + TRAINING_MODULES
+            } <= names
 
 
 def test_sources_name_no_jax_or_repro():
@@ -117,6 +123,8 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
             main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--arch", "mamba2_1p3b", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "kan_llm", "--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--arch", "mixtral_8x7b", "--smoke", "--replicas",
                            "2", "--drift-replica", "1"])

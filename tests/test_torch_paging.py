@@ -25,6 +25,7 @@ from repro_torch.obs.sketch import DEFAULT_ALPHA, QuantileSketch  # noqa: E402
 from repro_torch.serve import paging as tpaging  # noqa: E402
 from repro_torch.serve.paging import (GARBAGE_PAGE,  # noqa: E402
                                       PagedAllocator, page_hashes)
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

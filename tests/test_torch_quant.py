@@ -17,6 +17,7 @@ from repro.core import quant as jq, splines as js  # noqa: E402
 from repro.hw import cim as jcim  # noqa: E402
 from repro_torch.core import quant as tq, splines as tsp  # noqa: E402
 from repro_torch.hw import cim as tcim  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 GRIDS = (5, 7, 16)
 ORDERS = (2, 3)

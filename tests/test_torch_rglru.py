@@ -36,6 +36,7 @@ import test_torch_attention as ta  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import rglru as trg  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 NAME = "recurrentgemma_2b"
@@ -188,13 +189,12 @@ def test_block_decode_matches_jax(jx, buf_dtype):
 def test_config_registry_and_check_ported(jx, smoke):
     """The registry serves recurrentgemma (the port's config equal to
     JAX's, field by field), and ``check_ported`` takes its layers."""
-    assert NAME in tconfigs.PORTED and NAME not in tconfigs.LATER
+    assert NAME in tconfigs.ARCH_IDS
     tcfg = tconfigs.get_arch(NAME, smoke=smoke)
     ta._same_config(jx, tcfg, jx.get_arch(NAME, smoke=smoke))
     assert tcfg.shapes() == jx.get_arch(NAME).shapes()
     for spec in tcfg.model.block_pattern:
         ttfm.check_ported(spec)
-    assert "rglru" not in ttfm.LATER
 
 
 def test_full_width_parameter_count_without_allocating(jx):

@@ -39,6 +39,7 @@ from repro_torch.serve.router import Router, RouterStats  # noqa: E402
 from repro_torch.serve.scheduler import (EMPTY_PERCENTILES,  # noqa: E402
                                          AdmissionQueue, EngineStats,
                                          Request)
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 VOCAB = 97
 CHUNK = 4          # fake prefill tokens consumed per tick

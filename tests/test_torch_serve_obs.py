@@ -38,6 +38,7 @@ from repro_torch.obs import profile as tprofile  # noqa: E402
 from repro_torch.serve.engine import Engine, synth_trace  # noqa: E402
 from repro_torch.serve.scheduler import (AdmissionQueue,  # noqa: E402
                                          EngineStats, Request)
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

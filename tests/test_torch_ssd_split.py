@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ssd_scan as tscan  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 ATOL, RTOL, ORDER_REL = 3e-5, 1e-4, 1e-6
 # (B, T, H, P, N), chunk: the JAX suite's shapes at its chunks, ragged T

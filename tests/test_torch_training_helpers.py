@@ -31,6 +31,7 @@ from repro_torch.core import kan_sam as tsam, quant as tq  # noqa: E402
 from repro_torch.core import sensitivity as tsens, splines as tsp  # noqa: E402
 from repro_torch.hw import cim as tcim, cost_model as tcost  # noqa: E402
 from repro_torch.hw import neurosim as tns  # noqa: E402
+from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 
 
 def _t(a):
