@@ -5,8 +5,9 @@ serve the KAN-FFN LLM and mamba2-1.3b through the continuous-batching
 engine and the KAN-FFN LLM through the multi-replica router and the
 launcher's fleet path, run mixtral-8x7b and internvl2-76b over measured
 cuts of their layers, serve whisper-base through the engine, train the
-KAN-FFN LLM, whisper-base and mamba2-1.3b end to end, and hold every
-kernel against its plain version.
+KAN-FFN LLM, whisper-base and mamba2-1.3b end to end, train the KAN-FFN
+LLM, mamba2-1.3b and mixtral-8x7b sharded over a device mesh of ranks
+sharing the card, and hold every kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -350,6 +351,36 @@ Phases (any failed check raises, and the script exits non-zero):
    median of synchronized steps and over a window, the device's busy ms
    a step and its idle share (profiler), peak GB.
 
+16. LM training sharded over a torch ``DeviceMesh`` of ranks that share
+   the one card (``torchrun`` processes over gloo: NCCL takes one rank a
+   card; gloo stages every collective through host memory). (a)
+   ``kan_llm`` on ``fused`` at 16 x 512, AdamW, remat: step 0's
+   gradients on 2x2 against 15c.1's single-card ones at its bar (``atol
+   1e-5, rtol 1e-5`` plus twice the CPU's f32-vs-f64 reach, every entry);
+   ``launch.train --host-mesh --model-parallel 2`` for 20 steps on 2x2
+   saving at step 10, and a second launch resuming steps 10-20 on 1x2
+   from that checkpoint, every restored leaf bitwise the saved one
+   (``--verify-restore``), every step's loss within ``MESH_LOSS_REL`` of
+   the same command run without the mesh, ``kan_fused`` 16 launches a
+   step on every rank; ``kan_fused`` at a rank's shapes, as in phase 3.
+   (b) mamba2-1.3b on 1x2, all 48 layers unless the two ranks' peak at 2
+   and 3 layers predicts past ``MEM_SHARE`` of the card: step 0's
+   gradients against rank 0's single-card run at the same bar, the reach
+   being that run's bf16 against its f32 gradients; 3 AdamW steps,
+   ``ssd_scan`` 96 launches a step on each rank, and at a rank's shape
+   [2, 2048, 32, 64] against its plain versions. (c) mixtral-8x7b's
+   first layer on 1x2 (4 experts a rank; one layer, as rank 0 keeps the
+   single-card tree and two sets of its gradients beside the mesh's on
+   the shared card): the expert-parallel ``forward`` and one step's
+   gradients, and the weights-stationary ``apply_moe``, on rank 0's
+   pinned top-k choices, within twice the bf16 reach (plus
+   ``F32_PATH_BAR`` for the logits). (d) ``psum_int8_error_feedback``
+   over 4 ranks at [8, 4096]: codes bitwise the CPU's, the residual what
+   the rounding dropped, every rank's mean bitwise the same and within
+   0.02 of the exact mean. Per rank: ms a step, the device's busy ms and
+   idle share (profiler), peak GB, and the calls and input bytes of each
+   collective DTensor issued in a step.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -360,6 +391,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -372,6 +404,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.tensor import Replicate  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
 from repro_torch.configs import kan_llm, kan_llm_int8  # noqa: E402
@@ -380,6 +415,8 @@ from repro_torch.configs import recurrentgemma_2b  # noqa: E402
 from repro_torch.configs import internvl2_76b, whisper_base  # noqa: E402
 from repro_torch.core import kan, kan_sam, quant, splines  # noqa: E402
 from repro_torch.data import cf_synth, lm_synth  # noqa: E402
+from repro_torch.dist import compress  # noqa: E402
+from repro_torch.dist import sharding as shlib  # noqa: E402
 from repro_torch.examples import kan_neurosim_search  # noqa: E402
 from repro_torch.examples import serve_kan_llm, train_cf_kan  # noqa: E402
 from repro_torch.hw import chip, cim, health, tiles, variation  # noqa: E402
@@ -387,6 +424,7 @@ from repro_torch.hw.health import ChipHealth  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import cim_mac as cim_kernels  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernels  # noqa: E402
+from repro_torch.launch import mesh as meshlib  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
@@ -401,6 +439,7 @@ from repro_torch.serve.engine import Engine, synth_trace  # noqa: E402
 from repro_torch.serve.router import Router  # noqa: E402
 from repro_torch.serve.scheduler import Request  # noqa: E402
 from repro_torch.optim import make_optimizer, warmup_cosine  # noqa: E402
+from repro_torch.optim.optimizers import clip_by_global_norm  # noqa: E402
 from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
                                           make_train_step, value_and_grad)
 from repro_torch.tune import space  # noqa: E402
@@ -3673,6 +3712,9 @@ def kan_calls_per_step(cfg):
     return n_ffn * cfg.kan_spec.n_layers * (2 if cfg.remat else 1)
 
 
+KAN_REF = {}   # phase 15c.1's card gradients at step 0 and their reach
+
+
 def grads_vs_cpu(params, cfg, batch):
     """One step's gradients on the card against the CPU's plain run on the
     same weights and batch, leaf by leaf. Both round in f32, in different
@@ -3682,7 +3724,9 @@ def grads_vs_cpu(params, cfg, batch):
     distance, in the leaf, between the CPU's gradient and the same run
     with float64 weights and compute dtype (its KAN spline sums and the
     loss's softmax stay f32). Two f32 paths each within that reach of one
-    result are within twice it of each other (phase 13b's rule)."""
+    result are within twice it of each other (phase 13b's rule). The
+    card's gradients and each leaf's reach are kept in ``KAN_REF`` for
+    phase 16a, which holds the mesh's step 0 to them."""
     _, _, g_card = value_and_grad(tfm.loss_fn, params, cfg, batch)
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     _, _, g_cpu = value_and_grad(
@@ -3691,10 +3735,14 @@ def grads_vs_cpu(params, cfg, batch):
         tfm.loss_fn, tfm.tree_map(lambda t: t.cpu().double(), params),
         dataclasses.replace(cfg, dtype=torch.float64), cpu_batch)
     n_past, worst_rel, worst_reach = 0, 0.0, 0.0
+    KAN_REF.clear()
+    KAN_REF.update(want=[], reach=[])
     for a, b, c in zip(tfm.tree_leaves(g_card), tfm.tree_leaves(g_cpu),
                        tfm.tree_leaves(g_64)):
+        KAN_REF["want"].append(a.cpu())
         a, b = a.cpu().double(), b.double()
         reach = float((b - c).abs().max())
+        KAN_REF["reach"].append(reach)
         scale = max(float(b.abs().max()), 1e-30)
         n_past += int(((a - b).abs() > GRAD_ATOL + GRAD_RTOL * b.abs()
                        + 2 * reach).sum())
@@ -3933,6 +3981,651 @@ def training_phase(timer, dev):
               + f", peak {m['peak_gb']:.2f} GB")
     return dict(kan_llm=kan, whisper=whisper, mamba2=mamba), krows, srow, \
         kl, sl
+
+
+# --- phase 16: LM training sharded over a DeviceMesh of ranks on the card ---
+
+MESH_BACKEND = "gloo"      # NCCL refuses two ranks on one card
+MESH_KAN = dict(mesh=(2, 2), batch=16, seq=512, steps=20, resume_at=10)
+MESH_MAMBA = dict(mesh=(1, 2), batch=2, seq=2048, steps=3)
+MESH_MIXTRAL = dict(mesh=(1, 2), layers=1, batch=2, seq=256)
+MESH_LOSS_REL = 1e-4       # a mesh run's loss against the single card's
+PSUM_SHAPE = (8, 4096)     # the reference's test: one row per rank
+PSUM_REL = 0.02
+SRC = Path(__file__).resolve().parent / "src"
+
+
+def torchrun(n, args, log, timeout=900):
+    """``n`` ranks of ``args`` under ``torchrun --standalone`` (one
+    process a rank, all on the card); the full output goes to ``log``.
+    Returns (stdout, seconds); fails the phase on a nonzero exit."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), *args]
+    # ranks sharing the card free and reuse memory in turns: expandable
+    # segments let a rank hand back what it freed
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+        [str(SRC), os.environ.get("PYTHONPATH", "")]),
+        PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    Path(log).write_text(out.stdout + "\n" + out.stderr)
+    err = [ln for ln in out.stderr.splitlines() if "Error" in ln
+           or "error:" in ln or "Traceback" in ln][-12:]
+    check(out.returncode == 0, f"torchrun {' '.join(args[:3])}: exit "
+          f"{out.returncode}; " + " | ".join(err))
+    return out.stdout, time.perf_counter() - t0
+
+
+def rank_task(name, n, out_dir, timeout=900):
+    """``RANK_TASKS[name]`` on ``n`` ranks of this script; returns each
+    rank's result, in rank order."""
+    torchrun(n, [__file__, "--rank-task", name, "--out", str(out_dir)],
+             Path(out_dir) / f"{name}.log", timeout)
+    return [json.loads((Path(out_dir) / f"{name}.{r}.json").read_text())
+            for r in range(n)]
+
+
+COLLECTIVES = ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor",
+               "all_to_all_single", "broadcast")
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """While active, the calls and input bytes of every functional
+    collective (what DTensor issues), by op."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls, self.bytes = {}, {}
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        ns, _, op = str(func.overloadpacket).rpartition(".")
+        if ns.endswith("_c10d_functional") and op in COLLECTIVES:
+            n = sum(a.numel() * a.element_size() for a in args
+                    if isinstance(a, torch.Tensor))
+            self.calls[op] = self.calls.get(op, 0) + 1
+            self.bytes[op] = self.bytes.get(op, 0) + n
+        return func(*args, **(kwargs or {}))
+
+
+def mesh_step_metrics(step):
+    """Two steps of a mesh run on this rank: the first timed (from and to
+    a synchronize) with its collectives counted (calls and input bytes by
+    op), the second under the profiler (the device's busy ms and its idle
+    share of the timed step)."""
+    cb = CollectiveBytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cb:
+        step()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    out = dict(step_ms_synchronized=ms, collective_calls=cb.calls,
+               collective_bytes=cb.bytes, device_ms_per_step=None)
+    prof = tick_window(step, 0, 1)
+    if prof:
+        out.update(device_ms_per_step=prof["device_ms_per_tick"],
+                   profiled_wall_ms_per_step=prof["wall_ms_per_tick"],
+                   idle_share=1 - prof["device_ms_per_tick"] / ms)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def gathered_vs(label, grads, want, reach):
+    """Every DTensor leaf of ``grads`` gathered whole (a collective: every
+    rank calls this) and, where ``want`` is given (rank 0), held to it
+    leaf by leaf at ``GRAD_ATOL + GRAD_RTOL * |want|`` plus twice the
+    leaf's ``reach``; returns the counts (rank 0) or {}."""
+    n_past, worst, n, by_leaf = 0, 0.0, 0, []
+    paths = list(ckpt_paths(grads))
+    for i, g in enumerate(tfm.tree_leaves(grads)):
+        full = g.full_tensor() if shlib.is_dtensor(g) else g
+        if want is None:
+            del full
+            continue
+        a, b = full.cpu().reshape(-1), want[i].reshape(-1)
+        del full
+        scale = max(float(b.abs().max()), 1e-30)
+        past, err = 0, 0.0
+        for j in range(0, a.numel(), 1 << 26):   # host temporaries bounded
+            x, y = a[j:j + (1 << 26)], b[j:j + (1 << 26)]
+            d = (x - y).abs()
+            past += int((d > GRAD_ATOL + GRAD_RTOL * y.abs()
+                         + 2 * reach[i]).sum())
+            err = max(err, float(d.max()))
+        n_past += past
+        worst = max(worst, err / scale)
+        by_leaf.append((past, err / scale, paths[i], err, reach[i], scale))
+        n += a.numel()
+    if want is None:
+        return {}
+    top = sorted(by_leaf, reverse=True)[:3]
+    check(n_past == 0, f"{label}: mesh vs single-card gradients: {n_past} "
+          f"of {n} entries past the bar, worst {worst:.3g} of the leaf's "
+          f"largest; leaves (past, err/largest, path, err, reach, largest) "
+          f"{top}")
+    return dict(grad_entries=n, grad_entries_past_bar=n_past,
+                grad_max_err_over_leaf_max=worst,
+                worst_leaves=[list(t) for t in top])
+
+
+def ckpt_paths(tree):
+    """The leaf paths of ``tree`` (the checkpoint's keys), in
+    ``tfm.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            for p in ckpt_paths(v):
+                yield f"{k}/{p}" if p else str(k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            for p in ckpt_paths(v):
+                yield f"{i}/{p}" if p else str(i)
+    else:
+        yield ""
+
+
+def grads_cpu(params, cfg, batch):
+    """One step's gradients on this card, each leaf moved to the CPU."""
+    _, _, g = value_and_grad(tfm.loss_fn, params, cfg, batch)
+    out = [t.cpu() for t in tfm.tree_leaves(g)]
+    del g
+    return out
+
+
+def mesh_batch(cfg, batch, seq, step, dev, mesh):
+    dcfg = lm_synth.LMDataConfig(vocab=cfg.vocab, batch=batch, seq_len=seq)
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in lm_synth.batch_at(dcfg, step).items()}
+    return b, train_launch.place_batch(b, mesh)
+
+
+def psum_check(dev, world):
+    """16d: ``psum_int8_error_feedback`` over every rank, one gradient row
+    per rank (seeded, the same on every rank)."""
+    r = dist.get_rank()
+    rows = torch.randn((world,) + PSUM_SHAPE,
+                       generator=torch.Generator().manual_seed(0))
+    g = rows[r].to(dev)
+    ef = torch.zeros(g.numel(), device=dev)
+    compress.psum_int8_error_feedback({"w": g}, {"w": ef})   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg, new_ef = compress.psum_int8_error_feedback({"w": g}, {"w": ef})
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    avg, new_ef = avg["w"], new_ef["w"]
+    codes, scale, _, n = compress.compress_leaf(g, ef)
+    c_cpu, s_cpu, _, _ = compress.compress_leaf(g.cpu(), ef.cpu())
+    check(torch.equal(codes.cpu(), c_cpu) and torch.equal(scale.cpu(), s_cpu),
+          "psum: the card's int8 codes differ from the CPU's")
+    deq = compress._dequantize(codes, scale, n)
+    check(torch.equal(new_ef, g.reshape(-1) - deq), "psum: the residual is "
+          "not what the rounding dropped")
+    every = torch.empty((world,) + avg.shape, device=dev)
+    dist.all_gather_into_tensor(every.reshape(-1, avg.shape[-1]),
+                                avg.contiguous())
+    check(all(torch.equal(every[i], every[0]) for i in range(world)),
+          "psum: the ranks' means differ")
+    want = rows.mean(0)
+    rel = float((avg.cpu() - want).norm() / want.norm())
+    check(rel < PSUM_REL, f"psum: mean off by {rel:.3g} relative")
+    chunks = codes.shape[0]
+    return dict(shape=list(PSUM_SHAPE), ranks=world, rel_err=rel, ms=ms,
+                bytes_sent_per_rank=chunks * (compress._CHUNK + 4),
+                bytes_f32_all_reduce_would_send=g.numel() * 4)
+
+
+def kan16_task(dev, out_dir):
+    """16a's gradients and 16d on the 2x2 mesh. Rank 0 holds the mesh's
+    step-0 gradients to the single card's (written by the main process
+    with their reach) and times ``kan_fused`` at the rank's shapes."""
+    kt = MESH_KAN
+    world = dist.get_world_size()
+    mesh = meshlib.make_host_mesh(kt["mesh"][1], dev)
+    res = {"psum": psum_check(dev, world)}
+    cfg = dataclasses.replace(kan_llm.CONFIG.model, kan_backend="fused")
+    params = tfm.init_model(0, cfg)
+    ref_in = (torch.load(Path(out_dir) / "kan16_ref.pt")
+              if dist.get_rank() == 0 else None)
+    rec = {}
+    with shlib.use_mesh(mesh):
+        dp = shlib.distribute_tree(params, mesh, tfm.param_spec(cfg))
+        _, batch = mesh_batch(cfg, kt["batch"], kt["seq"], 0, dev, mesh)
+        ops.reset_launch_counts()
+        with mesh_fused_calls(rec):
+            _, _, g = value_and_grad(tfm.loss_fn, dp, cfg, batch)
+        torch.cuda.synchronize()
+        res["launches_grad"] = ops.launch_counts()["kan_fused"]
+        check(res["launches_grad"] == kan_calls_per_step(cfg),
+              f"kan_llm on the mesh: kan_fused launched "
+              f"{res['launches_grad']} times in a step, not "
+              f"{kan_calls_per_step(cfg)}")
+        res["grads"] = gathered_vs("kan_llm 2x2", g,
+                                   *(ref_in or (None, None)))
+        del g
+        opt = make_optimizer("adamw", warmup_cosine(3e-4, 10, kt["steps"]))
+        step_fn = make_train_step(cfg, opt, TrainConfig())
+        st = {"p": dp, "s": opt.init(dp), "i": 0}
+
+        def step():
+            b = mesh_batch(cfg, kt["batch"], kt["seq"], st["i"], dev,
+                           mesh)[1]
+            st["p"], st["s"], _ = step_fn(st["p"], st["s"], b)
+            st["i"] += 1
+        ops.reset_launch_counts()
+        res["timing"] = mesh_step_metrics(step)
+        res["launches_steps"] = ops.launch_counts()["kan_fused"]
+        check(res["launches_steps"] == st["i"] * kan_calls_per_step(cfg),
+              f"kan_llm mesh timing: kan_fused launched "
+              f"{res['launches_steps']} times in {st['i']} steps")
+    if dist.get_rank() == 0:
+        res["rows"] = []
+        for shape, (x, coeffs, asp) in sorted(rec.items()):
+            codes, scale = quant.quantize_coeffs(coeffs, asp, axis=(0, 1))
+            layer = types.SimpleNamespace(codes=codes.contiguous(),
+                                          scale=scale,
+                                          hemi=quant.hemi_for(asp, dev))
+            r = check_kan_fused(Timer(dev), f"mesh rank [{shape[0]}, "
+                                f"{shape[1]}] -> {codes.shape[-1]}", x,
+                                layer, asp)
+            r["on_path"] = False
+            res["rows"].append(r)
+    return res
+
+
+@contextlib.contextmanager
+def mesh_fused_calls(record):
+    """While active, ``record`` keeps the first (rows [N, I] the rank's
+    kernel sees, whole coefficients, asp) per input shape of
+    ``ops.kan_spline_fused`` called on DTensors (x split by rows only, as
+    the wrapper splits it; the redistribution and the gathering of the
+    coefficients are collectives every rank makes)."""
+    fn = ops.kan_spline_fused
+
+    def spy(x, coeffs, asp):
+        xl = x
+        if shlib.is_dtensor(x):   # the rows the rank's kernel sees: whole I
+            xl = x.redistribute(x.device_mesh, [
+                p if p.is_shard() and p.dim % x.ndim < x.ndim - 1
+                else Replicate() for p in x.placements]).to_local()
+        key = (xl.numel() // xl.shape[-1], xl.shape[-1])
+        if key not in record:
+            c = coeffs.full_tensor() if shlib.is_dtensor(coeffs) else coeffs
+            record[key] = (xl.detach().reshape(key).clone(),
+                           c.detach().clone(), asp)
+        return fn(x, coeffs, asp)
+    ops.kan_spline_fused = spy
+    try:
+        yield record
+    finally:
+        ops.kan_spline_fused = fn
+
+
+def reach_of(a, b):
+    return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+
+def mamba16_task(dev, out_dir):
+    """16b on the 1x2 mesh: the layer cut from the combined peak of 2 and
+    3 layers, rank 0's single-card gradients (bf16 and f32 compute, whose
+    distance is the bf16 reach), the mesh's step-0 gradients held to them,
+    3 AdamW steps, ``ssd_scan`` at the rank's shape."""
+    mt = MESH_MAMBA
+    mesh = meshlib.make_host_mesh(mt["mesh"][1], dev)
+    full = mamba2_1p3b.CONFIG.model
+    lead = dist.get_rank() == 0
+    res = {}
+    opt = make_optimizer("adamw", warmup_cosine(6e-4, 10, mt["steps"]))
+
+    def mesh_peak(n):
+        cfg = dataclasses.replace(full, n_layers=n)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with shlib.use_mesh(mesh):
+            dp = shlib.distribute_tree(tfm.init_model(0, cfg), mesh,
+                                       tfm.param_spec(cfg))
+            b = mesh_batch(cfg, mt["batch"], mt["seq"], 0, dev, mesh)[1]
+            make_train_step(cfg, opt, TrainConfig())(dp, opt.init(dp), b)
+        torch.cuda.synchronize()
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 1e9)
+        return sum(peaks)
+    n0, n1 = CALIB
+    calib = {n: mesh_peak(n) for n in (n0, n1)}
+    card = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    per_layer = calib[n1] - calib[n0]
+    fits = int((MEM_SHARE * card - calib[n0]) // max(per_layer, 1e-9)) + n0
+    cut = min(full.n_layers, fits)
+    cfg = dataclasses.replace(full, n_layers=cut)
+    res.update(calibration_gb=calib, layers=cut, card_gb=card,
+               predicted_gb=calib[n0] + per_layer * (cut - n0))
+    torch.cuda.empty_cache()
+    params = tfm.init_model(0, cfg)
+    b0, _ = mesh_batch(cfg, mt["batch"], mt["seq"], 0, dev, None)
+    want = reach = None
+    if lead:
+        want = grads_cpu(params, cfg, b0)
+        reach = reach_of(want, grads_cpu(params, dataclasses.replace(
+            cfg, dtype=torch.float32), b0))
+        s = layer0_scan_inputs(params, cfg, b0["tokens"])
+        h = s["x"].shape[2] // mt["mesh"][1]
+        half = {k: (v[:, :, :h].contiguous() if k in ("x", "dt") else
+                    v[:h].contiguous() if k in ("a", "d_skip") else v)
+                for k, v in s.items()}
+        res["rows"] = [check_ssd_scan(Timer(dev), "mesh rank [{}, {}, {}, {}]"
+                                      .format(*half["x"].shape), half,
+                                      cfg.ssm_chunk)]
+        del s, half
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with shlib.use_mesh(mesh):
+        dp = shlib.distribute_tree(params, mesh, tfm.param_spec(cfg))
+        del params
+        torch.cuda.empty_cache()
+        batch = mesh_batch(cfg, mt["batch"], mt["seq"], 0, dev, mesh)[1]
+        # step 0 of the 3: its gradients are held to rank 0's, then
+        # clipped and applied as ``make_train_step`` does
+        ops.reset_launch_counts()
+        loss, _, g = value_and_grad(tfm.loss_fn, dp, cfg, batch)
+        torch.cuda.synchronize()
+        res["launches_grad"] = ops.launch_counts()["ssd_scan"]
+        check(res["launches_grad"] == 2 * cut, f"mamba2 on the mesh: "
+              f"ssd_scan launched {res['launches_grad']} times, not "
+              f"{2 * cut}")
+        res["grads"] = gathered_vs("mamba2 1x2", g, want, reach)
+        del want
+        g, _ = clip_by_global_norm(g, TrainConfig().max_grad_norm)
+        dp, state = opt.update(g, opt.init(dp), dp)
+        del g
+        step_fn = make_train_step(cfg, opt, TrainConfig())
+        st = {"p": dp, "s": state, "i": 1,
+              "losses": [float(loss.full_tensor()
+                               if shlib.is_dtensor(loss) else loss)]}
+
+        def step():
+            b = mesh_batch(cfg, mt["batch"], mt["seq"], st["i"], dev,
+                           mesh)[1]
+            st["p"], st["s"], m = step_fn(st["p"], st["s"], b)
+            st["losses"].append(float(m["loss"]))
+            st["i"] += 1
+        ops.reset_launch_counts()
+        res["timing"] = mesh_step_metrics(step)
+        res["launches_steps"] = ops.launch_counts()["ssd_scan"]
+        res["steps"] = st["i"]
+        res["losses"] = st["losses"]
+        check(res["launches_steps"] == 2 * cut * (st["i"] - 1), f"mamba2 "
+              f"mesh steps: ssd_scan launched {res['launches_steps']} times "
+              f"in {st['i'] - 1} steps")
+        check(all(np.isfinite(st["losses"])), "mamba2 mesh: a loss is not "
+              "finite")
+    return res
+
+
+def single_moe(params, cfg):
+    """``params`` packed for 2 model shards as the single card's tree
+    (each MoE leaf [2, E/2, ...] viewed as [1, E, ...])."""
+    def go(t, path=()):
+        if isinstance(t, dict):
+            return {k: go(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [go(v, path) for v in t]
+        if "moe" in path and path[-1] in ("wi", "wg", "wo"):
+            lead = t.shape[:-4]
+            return t.reshape(lead + (1, -1) + tuple(t.shape[-2:]))
+        return t
+    return go(params)
+
+
+def first_moe(params, cfg):
+    """Layer 0's MoE parameters (repeat 0 of a stacked stage)."""
+    st = params["stages"][0]
+    if tfm.stages_for(cfg)[0].repeats > 1:
+        st = tfm.layer_of(st, 0)
+    return st["l0"]["moe"]
+
+
+def mixtral16_task(dev, out_dir):
+    """16c on the 1x2 mesh (4 experts a rank): the expert-parallel path in
+    ``forward`` and in one step's gradients, and the weights-stationary
+    ``apply_moe`` on layer 0's MoE, each on rank 0's single-card run's
+    top-k choices and held to that run within twice the bf16 reach (its
+    bf16 against its f32 run on the same choices) plus ``F32_PATH_BAR``
+    (two f32 paths summing in other orders); the gradients at
+    ``GRAD_ATOL + GRAD_RTOL`` plus twice that reach, leaf by leaf. Every
+    rank draws the whole tree from the seed and keeps its shard; only rank
+    0 keeps the whole tree, for the single-card runs."""
+    mx = MESH_MIXTRAL
+    mesh = meshlib.make_host_mesh(mx["mesh"][1], dev)
+    cfg = dataclasses.replace(mixtral_cfg(mx["layers"]), remat=False)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    lead = dist.get_rank() == 0
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_model(0, cfg, n_model=mx["mesh"][1])
+    if not lead:
+        dp = shlib.distribute_tree(params, mesh, tfm.param_spec(cfg))
+        del params
+        torch.cuda.empty_cache()
+    b0, _ = mesh_batch(cfg, mx["batch"], mx["seq"], 0, dev, None)
+    x = torch.randn((mx["batch"], mx["seq"], cfg.d_model),
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    res, box = {}, [None]
+    want_g = reach_g = None
+    if lead:
+        one = single_moe(params, cfg)
+        moe0 = first_moe(one, cfg)
+        with torch.no_grad():
+            with moe_watch(cfg.n_layers) as log:
+                lf, _ = tfm.forward(one, cfg, b0)
+            with moe_watch(cfg.n_layers, log.choices):
+                lf32, _ = tfm.forward(one, c32, b0)
+            with moe_watch(1) as wlog:
+                ys, _ = moe_lib.apply_moe(moe0, x.to(cfg.dtype),
+                                          cfg.moe_cfg)
+            with moe_watch(1, wlog.choices):
+                ys32, _ = moe_lib.apply_moe(moe0, x, cfg.moe_cfg)
+        box = [([c.cpu() for c in log.choices], wlog.choices[0].cpu())]
+        with moe_watch(cfg.n_layers, log.choices):
+            want_g = grads_cpu(one, cfg, b0)
+        with moe_watch(cfg.n_layers, log.choices):
+            reach_g = reach_of(want_g, grads_cpu(one, c32, b0))
+        del one, moe0
+        dp = shlib.distribute_tree(params, mesh, tfm.param_spec(cfg))
+        del params
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(box, src=0)
+    choices = [c.to(dev) for c in box[0][0]]
+    wch = [box[0][1].to(dev)]
+    with shlib.use_mesh(mesh):
+        batch = mesh_batch(cfg, mx["batch"], mx["seq"], 0, dev, mesh)[1]
+        with torch.no_grad(), moe_watch(cfg.n_layers, choices):
+            lm, _ = tfm.forward(dp, cfg, batch)
+        lm = lm.full_tensor()
+        with moe_watch(cfg.n_layers, choices):
+            _, _, g = value_and_grad(tfm.loss_fn, dp, cfg, batch)
+        res["grads"] = gathered_vs("mixtral 1x2 expert-parallel", g, want_g,
+                                   reach_g)
+        del g, want_g
+        mp = first_moe(dp, cfg)
+        dx = shlib.local_to_dtensor(x.to(cfg.dtype), mesh,
+                                    (Replicate(), Replicate()))
+        with torch.no_grad(), moe_watch(1, wch):
+            ym, _ = moe_lib.apply_moe(mp, dx, cfg.moe_cfg,
+                                      weights_stationary=True)
+        ym = ym.full_tensor()
+    if lead:
+        reach_f = float((lf.float() - lf32.float()).abs().max())
+        err_f = float((lm.float() - lf.float()).abs().max())
+        check(err_f <= 2 * reach_f + F32_PATH_BAR, f"mixtral 1x2 forward: "
+              f"mesh vs single card {err_f:.3g}, past twice the bf16 reach "
+              f"{reach_f:.3g} + {F32_PATH_BAR}")
+        reach_w = float((ys.float() - ys32.float()).abs().max())
+        err_w = float((ym.float() - ys.float()).abs().max())
+        check(err_w <= 2 * reach_w + F32_PATH_BAR, f"mixtral "
+              f"weights-stationary: mesh vs single card {err_w:.3g}, past "
+              f"twice the bf16 reach {reach_w:.3g} + {F32_PATH_BAR}")
+        res.update(forward_err=err_f, forward_bf16_reach=reach_f,
+                   stationary_err=err_w, stationary_bf16_reach=reach_w)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+RANK_TASKS = {"kan16": kan16_task, "mamba16": mamba16_task,
+              "mixtral16": mixtral16_task}
+
+
+def rank_main() -> int:
+    """One rank of a phase-16 task (``--rank-task NAME --out DIR``, under
+    torchrun): its result as ``DIR/NAME.<rank>.json``."""
+    argv = sys.argv
+    name = argv[argv.index("--rank-task") + 1]
+    out_dir = Path(argv[argv.index("--out") + 1])
+    dev = torch.device("cuda")
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                          % torch.cuda.device_count())
+    meshlib.init_process_group(MESH_BACKEND, cuda_gloo=True)
+    res = RANK_TASKS[name](dev, out_dir)
+    (out_dir / f"{name}.{meshlib.rank()}.json").write_text(
+        json.dumps(res, default=float))
+    meshlib.destroy()
+    return 0
+
+
+def mesh_phase(dev):
+    """Phase 16. Returns the metrics, the kernel rows (kan_fused, ssd_scan)
+    and the launches summed over the ranks."""
+    kt = MESH_KAN
+    cfg = dataclasses.replace(kan_llm.CONFIG.model, kan_backend="fused")
+    argv = ["--arch", "kan_llm", "--kan-backend", "fused", "--batch",
+            str(kt["batch"]), "--seq", str(kt["seq"]), "--steps",
+            str(kt["steps"]), "--log-every", "5"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the single-card run of the same command, and its step-0 gradients
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            one = train_launch.main(argv)
+        if not KAN_REF:   # phase 16 alone: 15c.1's step-0 reference
+            b0 = mesh_batch(cfg, kt["batch"], kt["seq"], 0, dev, None)[0]
+            grads_vs_cpu(tfm.init_model(0, cfg), cfg, b0)
+        torch.save((KAN_REF["want"], KAN_REF["reach"]),
+                   tmp / "kan16_ref.pt")
+        torch.cuda.empty_cache()
+        # 16a/16d on 2x2: gradients, timing, psum
+        t0 = time.perf_counter()
+        r_kan = rank_task("kan16", 4, tmp)
+        out["kan16_s"] = time.perf_counter() - t0
+        # 16a: the launcher on 2x2, then resumed on 1x2 from step 10
+        mesh_args = ["-m", "repro_torch.launch.train", *argv, "--host-mesh",
+                     "--model-parallel", "2", "--dist-backend", MESH_BACKEND]
+        ck, ck2 = tmp / "ck", tmp / "ck2"
+        _, s_a = torchrun(4, mesh_args + ["--ckpt-dir", str(ck),
+                                          "--save-every",
+                                          str(kt["resume_at"]),
+                                          "--losses-out", str(tmp / "a")],
+                          tmp / "launch_2x2.log")
+        name = f"step_{kt['resume_at']:08d}"
+        ck2.mkdir()
+        subprocess.run(["cp", "-r", str(ck / name), str(ck2 / name)],
+                       check=True)
+        s_out, s_b = torchrun(2, mesh_args + ["--ckpt-dir", str(ck2),
+                                              "--verify-restore",
+                                              "--losses-out",
+                                              str(tmp / "b")],
+                              tmp / "launch_1x2.log")
+        runs = {}
+        for tag, n in (("a", 4), ("b", 2)):
+            runs[tag] = [json.loads(Path(str(tmp / tag) + (
+                f".rank{r}" if r else "")).read_text()) for r in range(n)]
+        # 16b, 16c
+        t0 = time.perf_counter()
+        r_mamba = rank_task("mamba16", 2, tmp)
+        out["mamba16_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r_mix = rank_task("mixtral16", 2, tmp, timeout=1200)
+        out["mixtral16_s"] = time.perf_counter() - t0
+    # 16a checks: every step's loss, the resume, the restored leaves, the
+    # launches on every rank
+    per_step = kan_calls_per_step(cfg)
+    ref = one["losses"]
+    a, b = runs["a"][0], runs["b"][0]
+    check(b["start"] == kt["resume_at"] and len(a["losses"]) == kt["steps"]
+          and len(b["losses"]) == kt["steps"] - kt["resume_at"],
+          f"kan_llm mesh: runs of {len(a['losses'])} and "
+          f"{len(b['losses'])} steps from {b['start']}")
+    check("restored" in s_out and "bitwise equal" in s_out,
+          "kan_llm 1x2: no bitwise check of the restored leaves")
+    rel_a = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref))
+    rel_b = max(abs(x - y) / abs(y) for x, y in zip(
+        b["losses"], ref[kt["resume_at"]:]))
+    check(max(rel_a, rel_b) <= MESH_LOSS_REL, f"kan_llm mesh losses vs the "
+          f"single card: 2x2 {rel_a:.3g}, resumed 1x2 {rel_b:.3g} relative")
+    for tag, steps in (("a", kt["steps"]),
+                       ("b", kt["steps"] - kt["resume_at"])):
+        for r, run in enumerate(runs[tag]):
+            n = run["launches"]["kan_fused"]
+            check(n == per_step * steps, f"kan_llm mesh run {tag} rank {r}: "
+                  f"kan_fused launched {n} times in {steps} steps, not "
+                  f"{per_step * steps}")
+    launches = {"kan_fused": sum(
+        run["launches"]["kan_fused"] for tag in runs for run in runs[tag])
+        + sum(r["launches_grad"] + r["launches_steps"] for r in r_kan),
+        "ssd_scan": sum(r["launches_grad"] + r["launches_steps"]
+                        for r in r_mamba)}
+    restored = re.search(r"restored (\d+) leaves", s_out)
+    out.update(
+        transport=f"{MESH_BACKEND} over host memory, ranks sharing one card "
+                  f"(NCCL: one rank a card)",
+        kan_llm=dict(
+            mesh="2x2 then 1x2", losses_single=ref, losses_2x2=a["losses"],
+            losses_1x2_resumed=b["losses"], loss_rel_2x2=rel_a,
+            loss_rel_1x2=rel_b, restored_leaves=int(restored.group(1))
+            if restored else None,
+            step_ms_median_per_rank_2x2=[
+                1e3 * float(np.median(r["step_s"][1:])) for r in runs["a"]],
+            step_ms_median_per_rank_1x2=[
+                1e3 * float(np.median(r["step_s"][1:])) for r in runs["b"]],
+            step_ms_single=1e3 * float(np.median(one["step_s"][1:])),
+            launches_per_rank_step=per_step, launcher_s=[s_a, s_b],
+            grads=r_kan[0]["grads"],
+            per_rank=[r["timing"] for r in r_kan]),
+        psum=r_kan[0]["psum"],
+        mamba2=dict({k: v for k, v in r_mamba[0].items()
+                     if k not in ("rows", "timing")},
+                    per_rank=[r["timing"] for r in r_mamba]),
+        mixtral=dict(r_mix[0], peak_gb_per_rank=[r["peak_gb"]
+                                                 for r in r_mix]))
+    return out, r_kan[0]["rows"], r_mamba[0]["rows"], launches
+
+
+def print_mesh(m):
+    k = m["kan_llm"]
+    print(f"phase 16 transport: {m['transport']}")
+    for label, runs in (("16a kan_llm 2x2", k["per_rank"]),
+                        ("16b mamba2-1.3b 1x2", m["mamba2"]["per_rank"])):
+        for r, t in enumerate(runs):
+            dev_ms = t.get("device_ms_per_step")
+            print(f"phase {label} rank {r}: "
+                  f"{t['step_ms_synchronized']:.1f} ms a step "
+                  f"synchronized, device "
+                  + (f"{dev_ms:.1f} ms (idle {t['idle_share']:.3f})"
+                     if dev_ms else "not measured")
+                  + f", peak {t['peak_gb']:.2f} GB, collectives a step "
+                  f"{t['collective_calls']} moving {t['collective_bytes']} "
+                  f"input bytes")
+    print(f"phase 16a kan_llm: losses vs single card 2x2 "
+          f"{k['loss_rel_2x2']:.3g}, resumed 1x2 {k['loss_rel_1x2']:.3g} "
+          f"relative; step ms per rank 2x2 {k['step_ms_median_per_rank_2x2']}"
+          f", 1x2 {k['step_ms_median_per_rank_1x2']}, single card "
+          f"{k['step_ms_single']:.1f}; restored {k['restored_leaves']} "
+          f"leaves bitwise; gradients {k['grads']}")
+    print(f"phase 16b mamba2-1.3b: {m['mamba2']['layers']} layers (peaks "
+          f"of both ranks at 2 and 3 layers {m['mamba2']['calibration_gb']}"
+          f" GB, predicted {m['mamba2']['predicted_gb']:.2f} of "
+          f"{m['mamba2']['card_gb']:.2f}); gradients "
+          f"{m['mamba2']['grads']}; losses {m['mamba2']['losses']}")
+    print(f"phase 16c mixtral-8x7b 1x2: {m['mixtral']}")
+    print(f"phase 16d psum_int8_error_feedback: {m['psum']}")
 
 
 def main() -> int:
@@ -4345,6 +5038,35 @@ def main() -> int:
     print("phase 15c: " + json.dumps(t15c))
     print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
 
+    # 16. LM training sharded over a DeviceMesh of ranks on the card:
+    # kan_llm 2x2 (and resumed on 1x2), mamba2-1.3b 1x2, mixtral 1x2, the
+    # int8 all-reduce; every rank's launches counted
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m16, krows16, srows16, launches16 = mesh_phase(dev)
+    rows["kan_fused"].extend(krows16)
+    rows["ssd_scan"].extend(srows16)
+    for k, n in launches16.items():
+        check(n > 0, f"phase 16: {k} was not launched on any rank")
+        launches[k] += n
+    print_mesh(m16)
+    for r in krows16:
+        print(f"kernel kan_fused {r['shape']}: max|err| {r['max_abs_err']:.3g}"
+              f", err/sum|terms| {r['max_err_over_sum_abs_terms']:.3g}, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f}, host "
+              f"{r['host_ms']:.4f} (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})")
+    for r in srows16:
+        print(f"kernel ssd_scan {r['shape']}: max|err| vs plain y "
+              f"{r['y_vs_plain_max_abs_err']:.3g}; err/tolerance vs plain y "
+              f"{r['y_vs_plain_err_over_tol']:.3g} state "
+              f"{r['state_vs_plain_err_over_tol']:.3g}; {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}, 3xTF32 bound {r['bound_tf32_ms']:.4f})")
+    print("phase 16: " + json.dumps(m16, default=float))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
     # result lines
     kernels = []
     for kname, krows in rows.items():
@@ -4374,4 +5096,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main() if "--rank-task" in sys.argv else main())

@@ -14,8 +14,17 @@ Writes go to a temp directory, then one rename: a preempted writer never
 leaves a half-written step that readers could take (``latest_step`` takes
 the newest step with a manifest). ``save_async`` snapshots to host memory
 first and writes on a thread. ``restore`` places every leaf on its
-template leaf's device in its dtype; elastic resharding onto a mesh
-(``shardings``) is Slice F.
+template leaf's device in its dtype.
+
+Under a mesh (DTensor leaves) every rank calls ``save``: each DTensor leaf
+is gathered once (``full_tensor``), rank 0 writes, and a synchronous save
+ends at a barrier. ``restore(..., shardings=)`` is the elastic resharding:
+each rank reads the whole leaf and keeps its own shard for the target
+placements (``dist.sharding.NamedSharding``, e.g. from ``tree_shardings``
+or ``shardings_of``), with no collective; a DTensor template leaf with no
+sharding given keeps its own placements. The files are the same whatever
+the mesh, so a checkpoint written on one mesh restores on another, or on
+one device, in either package.
 """
 from __future__ import annotations
 
@@ -28,15 +37,20 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.dist.sharding import (NamedSharding, is_dtensor,
+                                       local_to_dtensor)
 from repro_torch.optim.optimizers import QTensor
 
 PyTree = Any
-MESH_SLICE = "ROADMAP Slice F (distribution)"
 
 
 def _items(tree):
-    """(key part, child) of a tree node, or None for a leaf."""
+    """(key part, child) of a tree node, or None for a leaf (a
+    ``NamedSharding`` is a leaf of a shardings tree)."""
+    if isinstance(tree, NamedSharding):
+        return None
     if isinstance(tree, QTensor):
         return [("." + f, getattr(tree, f)) for f in tree._fields]
     if isinstance(tree, Mapping):
@@ -82,9 +96,12 @@ def _treedef(tree) -> str:
 
 def _host(leaf) -> np.ndarray:
     """A leaf as a host numpy array that no later write to the leaf can
-    change (bf16 as its raw words, dtype ``V2``)."""
+    change (bf16 as its raw words, dtype ``V2``); a DTensor is gathered
+    whole first (a collective: every rank calls this)."""
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
@@ -99,21 +116,34 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the one
+    process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree: PyTree,
          extra: Optional[Dict] = None) -> str:
-    """Synchronous atomic save."""
+    """Synchronous atomic save (in a process group: every rank calls it,
+    rank 0 writes, all return after a barrier)."""
     host = {k: _host(v) for k, v in _leaf_paths(tree).items()}
-    return _write(ckpt_dir, step, host, _treedef(tree), extra)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer():
+        final = _write(ckpt_dir, step, host, _treedef(tree), extra)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
 
 
 def save_async(ckpt_dir: str, step: int, tree: PyTree,
                extra: Optional[Dict] = None) -> threading.Thread:
     """Snapshot to host now, write in the background; returns the writer
-    thread."""
+    thread (in a process group every rank calls it and rank 0's thread
+    writes; the others' threads do nothing)."""
     host = {k: _host(v) for k, v in _leaf_paths(tree).items()}
-    t = threading.Thread(target=_write, args=(ckpt_dir, step, host,
-                                              _treedef(tree), extra),
-                         daemon=True)
+    args = (ckpt_dir, step, host, _treedef(tree), extra)
+    t = threading.Thread(target=_write if _writer() else lambda *a: None,
+                         args=args, daemon=True)
     t.start()
     return t
 
@@ -173,11 +203,11 @@ def restore(ckpt_dir: str, template: PyTree, step: Optional[int] = None,
             shardings: Optional[PyTree] = None) -> Tuple[PyTree, Dict]:
     """Restore into the structure of ``template`` (the latest step unless
     ``step`` is given): each leaf cast to its template leaf's dtype and
-    placed on its device. Returns (tree, the manifest's ``extra``)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            f"restore onto a mesh (shardings) is not ported yet: "
-            f"{MESH_SLICE}")
+    placed on its device. ``shardings`` mirrors ``template`` with a
+    ``NamedSharding`` (or None) per leaf: such a leaf becomes a DTensor
+    with those placements, built from this rank's slice of the file (as
+    does a DTensor template leaf without one). Returns (tree, the
+    manifest's ``extra``)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -185,10 +215,38 @@ def restore(ckpt_dir: str, template: PyTree, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     names = manifest["leaves"]
+    placed = {} if shardings is None else {
+        k: v for k, v in _leaf_paths(shardings).items() if v is not None}
     out = {}
     for key, tmpl in _leaf_paths(template).items():
         t = _tensor(np.load(os.path.join(d, names[key])))
+        target = placed.get(key)
+        if target is None and is_dtensor(tmpl):
+            target = NamedSharding(tmpl.device_mesh, tuple(tmpl.placements))
         if isinstance(tmpl, torch.Tensor):
-            t = t.to(device=tmpl.device, dtype=tmpl.dtype)
+            dev = (tmpl.to_local() if is_dtensor(tmpl) else tmpl).device
+            t = t.to(device=dev, dtype=tmpl.dtype)
+        if target is not None:
+            t = local_to_dtensor(t, target.mesh, target.placements)
         out[key] = t
     return _rebuild(template, out), manifest["extra"]
+
+
+def verify(ckpt_dir: str, tree: PyTree, step: Optional[int] = None) -> int:
+    """Check that every leaf of ``tree`` (a restore's result; DTensor
+    leaves are gathered whole, a collective: every rank calls this)
+    equals its file of ``step`` (default the latest) bit for bit; raises
+    otherwise. Returns the number of leaves checked."""
+    step = step if step is not None else latest_step(ckpt_dir)
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        names = json.load(f)["leaves"]
+    leaves = _leaf_paths(tree)
+    for key, leaf in leaves.items():
+        got = _host(leaf)
+        want = np.load(os.path.join(d, names[key]))
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            raise AssertionError(f"leaf {key} differs from step {step}'s "
+                                 f"file")
+    return len(leaves)
+

@@ -14,6 +14,16 @@ basis for the coefficients). ``ssd_state`` on the card is the same
 arrangement when an input requires a gradient: the ``ssd_scan`` kernel
 forward, and a backward that recomputes the plain chunked form and returns
 its VJP (the reference trains through that form, which JAX differentiates).
+
+Under a mesh (DTensor inputs, ``dist.sharding``) ``kan_spline_fused`` and
+``ssd_state`` run on each rank's local shard through ``local_map``: the
+kernel splits only the batch rows and the output channels
+(``kan_spline_fused``) or the batch and the heads (``ssd``); the
+reduction dim (I·S) and every quantisation statistic stay whole on each
+rank. An input replicated over a mesh dim on which the kernel runs on
+shards of another input gets a partial gradient there, which
+``local_map`` is told (``in_grad_placements``): by default it would take
+the local gradient as the whole one.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 
 from repro_torch.core import quant, splines
 from repro_torch.core.quant import ASPConfig
+from repro_torch.dist.sharding import as_dtensors, placements_of
 from repro_torch.kernels import cim_mac as _cim
 from repro_torch.kernels import kan_fused as _kf
 from repro_torch.kernels import ref
@@ -129,6 +140,33 @@ class _KanSplineFused(torch.autograd.Function):
         return dx, dcoeffs, None
 
 
+def _kan_spline_fused_mesh(mesh, x, coeffs, asp: ASPConfig):
+    """``_KanSplineFused`` on each rank's shard: per mesh dim, x's batch
+    rows stay split if they are (coeffs replicated there, their gradient
+    partial), else the coefficients' output channels stay split if they
+    are (x replicated there, its gradient partial), else both replicate.
+    The coefficients' I and S are whole, so each output channel's scale is
+    the unsharded one."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    nd = x.ndim
+    xp, cp, yp, xg, cg = [], [], [], [], []
+    for px, pc in zip(placements_of(x), placements_of(coeffs)):
+        if px.is_shard() and px.dim < nd - 1:
+            col = (px, Replicate(), px, px, Partial())
+        elif pc.is_shard(2):
+            col = (Replicate(), Shard(2), Shard(nd - 1), Partial(), Shard(2))
+        else:
+            col = (Replicate(),) * 5
+        for lst, pl in zip((xp, cp, yp, xg, cg), col):
+            lst.append(pl)
+    fn = local_map(lambda a, c: _KanSplineFused.apply(a, c, asp),
+                   out_placements=yp, in_placements=(xp, cp),
+                   in_grad_placements=(xg, cg), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(x, coeffs)
+
+
 def kan_spline_fused(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig
                      ) -> torch.Tensor:
     """Quantised fused spline for training: x [..., I] float (bounded),
@@ -137,7 +175,11 @@ def kan_spline_fused(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig
     the CUDA kernel on the card, its plain version on the CPU. The backward
     is the straight-through estimator: d/dx through the float cardinal path,
     d/dcoeffs the quantised expanded basis times dy. Returns [..., O] in
-    x.dtype; the gradients come back in their inputs' dtypes."""
+    x.dtype; the gradients come back in their inputs' dtypes. DTensor
+    inputs run on each rank's shard (``_kan_spline_fused_mesh``)."""
+    mesh, (x, coeffs) = as_dtensors(x, coeffs)
+    if mesh is not None:
+        return _kan_spline_fused_mesh(mesh, x, coeffs, asp)
     return _KanSplineFused.apply(x, coeffs, asp)
 
 
@@ -219,7 +261,11 @@ def ssd_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     init_state: [B, H, P, N] or None. Returns (y [B, T, H, P] f32,
     final_state [B, H, P, N] f32). T is taken as padded to a whole chunk
     with dt = 0 rows (exact no-ops): the plain version pads, the kernel
-    masks the rows past T, which is the same."""
+    masks the rows past T, which is the same. DTensor inputs run on each
+    rank's shard (``_ssd_state_mesh``)."""
+    mesh, ins = as_dtensors(x, dt, a, b_mat, c_mat, d_skip, init_state)
+    if mesh is not None:
+        return _ssd_state_mesh(mesh, *ins, chunk=chunk)
     extra = {} if d_skip is None else {"d_skip": d_skip}
     if init_state is not None:
         extra["init_state"] = init_state
@@ -234,6 +280,45 @@ def ssd_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             t is not None and t.requires_grad for t in inputs):
         return _SsdScan.apply(*inputs, chunk)
     return _ssd_scan_f32(*inputs, chunk)
+
+
+def _ssd_state_mesh(mesh, x, dt, a, b_mat, c_mat, d_skip, init_state, *,
+                    chunk: int):
+    """``ssd_state`` on each rank's shard: per mesh dim, the batch stays
+    split if x's is (a and d_skip replicated there, their gradients
+    partial), else the heads stay split if x's are (B and C replicated
+    there, their gradients partial), else everything replicates. Each
+    rank's scan is then the unsharded scan of its rows and heads."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    R, P = Replicate(), Partial()
+    # x, dt, a, B, C, d_skip, init_state; then y, final
+    batch = (Shard(0), Shard(0), R, Shard(0), Shard(0), R, Shard(0))
+    batch_g = (Shard(0), Shard(0), P, Shard(0), Shard(0), P, Shard(0))
+    heads = (Shard(2), Shard(2), Shard(0), R, R, Shard(0), Shard(1))
+    heads_g = (Shard(2), Shard(2), Shard(0), P, P, Shard(0), Shard(1))
+    rep = (R,) * 7
+    cols = []
+    for px in placements_of(x):
+        if px.is_shard(0):
+            cols.append((batch, batch_g, (Shard(0), Shard(0))))
+        elif px.is_shard(2):
+            cols.append((heads, heads_g, (Shard(2), Shard(1))))
+        else:
+            cols.append((rep, rep, (R, R)))
+    ins = (x, dt, a, b_mat, c_mat, d_skip, init_state)
+    in_pl = tuple(None if ins[j] is None else [c[0][j] for c in cols]
+                  for j in range(7))
+    in_g = tuple(None if ins[j] is None else [c[1][j] for c in cols]
+                 for j in range(7))
+    out_pl = tuple([c[2][j] for c in cols] for j in range(2))
+
+    def local(xl, dtl, al, bl, cl, dl, il):
+        return ssd_state(xl, dtl, al, bl, cl, dl, chunk=chunk, init_state=il)
+    fn = local_map(local, out_placements=out_pl, in_placements=in_pl,
+                   in_grad_placements=in_g, device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(*ins)
 
 
 def _ssd_scan_f32(x, dt, a, b_mat, c_mat, d_skip, init_state, chunk):

@@ -33,6 +33,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.dist.sharding import (as_dtensors, contiguous_grad,
+                                       placements_of)
+
 Tensor = torch.Tensor
 NEG_INF = -1e30
 
@@ -57,6 +60,35 @@ def _heads_out(out: Tensor, b: int, s: int, hq: int, dtype) -> Tensor:
     return out.reshape(b, s, hq, hd).to(dtype)
 
 
+def _on_shards(fn, q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
+    """``fn(q, k, v, **kw)`` on each rank's shard when an input is a
+    DTensor (``local_map``): per mesh dim the batch stays split if q's is,
+    else the heads if q's and the kv heads both are (query head h reads kv
+    head h // G, so contiguous splits of both keep each group whole), else
+    all three replicate. Every split is one that attention runs apart on,
+    so no gradient is partial."""
+    mesh, (q, k, v) = as_dtensors(q, k, v)
+    if mesh is None:
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = []
+    for pq, pk, pv in zip(placements_of(q), placements_of(k),
+                          placements_of(v)):
+        if pq.is_shard(0):
+            pl.append(Shard(0))
+        elif pq.is_shard(2) and pk.is_shard(2) and pv.is_shard(2):
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    def local(a, b, c):
+        return fn(contiguous_grad(a), contiguous_grad(b), contiguous_grad(c),
+                  **kw)
+    return local_map(local, out_placements=pl,
+                     in_placements=(pl, pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                       q_offset=0, kv_valid_len=None,
                       kv_chunk: int = 512) -> Tensor:
@@ -64,8 +96,16 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
     q: [B, S, Hq, hd]; k, v: [B, T, Kv, hd]; query i sits at position
     ``q_offset + i``. ``kv_valid_len``: keys at positions >= it are masked.
-    Returns [B, S, Hq, hd] in q's dtype.
+    Returns [B, S, Hq, hd] in q's dtype. DTensor inputs run on each rank's
+    shard (``_on_shards``).
     """
+    return _on_shards(_chunked_attention, q, k, v, causal=causal,
+                      q_offset=q_offset, kv_valid_len=kv_valid_len,
+                      kv_chunk=kv_chunk)
+
+
+def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                       q_offset, kv_valid_len, kv_chunk: int) -> Tensor:
     b, s, hq, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     g = hq // n_kv
@@ -92,9 +132,9 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
             mask = mask & (q_pos[:, None] >= k_pos[None, :])
         if kv_valid_len is not None:
             mask = mask & (k_pos < kv_valid_len)[None, :]
-        scores = scores.view(b, n_kv, s, g, kv_chunk).masked_fill_(
+        scores = scores.reshape(b, n_kv, s, g, kv_chunk).masked_fill_(
             ~mask.expand(s, kv_chunk)[None, None, :, None, :], NEG_INF
-        ).view(b, n_kv, s * g, kv_chunk)
+        ).reshape(b, n_kv, s * g, kv_chunk)
         m_new = torch.maximum(m, scores.amax(dim=-1))
         p = torch.exp(scores - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -111,9 +151,15 @@ def windowed_attention(q: Tensor, k: Tensor, v: Tensor, *, window: int,
 
     S is padded to a multiple of ``window``; each query chunk attends to its
     own and the previous key chunk. ``q_offset`` is accepted for the
-    reference's signature and, as there, not read.
+    reference's signature and, as there, not read. DTensor inputs run on
+    each rank's shard (``_on_shards``).
     """
     del q_offset
+    return _on_shards(_windowed_attention, q, k, v, window=window)
+
+
+def _windowed_attention(q: Tensor, k: Tensor, v: Tensor, *, window: int
+                        ) -> Tensor:
     b, s, hq, hd = q.shape
     n_kv = k.shape[2]
     g, w = hq // n_kv, window
@@ -142,9 +188,9 @@ def windowed_attention(q: Tensor, k: Tensor, v: Tensor, *, window: int,
     c_idx = torch.arange(nc, device=dev)
     valid_abs = (c_idx[:, None, None] * w + t_idx[None]) >= 0
     full_mask = mask[None] & valid_abs                   # [nc, w, 2w]
-    scores = scores.view(b, n_kv, nc, w, g, 2 * w).masked_fill_(
+    scores = scores.reshape(b, n_kv, nc, w, g, 2 * w).masked_fill_(
         ~full_mask[None, None, :, :, None, :], NEG_INF
-    ).view(b, n_kv, nc, w * g, 2 * w)
+    ).reshape(b, n_kv, nc, w * g, 2 * w)
     p = torch.softmax(scores, dim=-1)
     out = (p @ vc).reshape(b, n_kv, sp * g, hd)
     return _heads_out(out, b, sp, hq, q.dtype)[:, :s]

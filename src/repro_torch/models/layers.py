@@ -19,14 +19,39 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.dist.sharding import (as_dtensors, is_dtensor, pin_grad,
+                                       placements_of, shard)
+
 Tensor = torch.Tensor
 
 
 def matmul(a: Tensor, b: Tensor) -> Tensor:
     """``a @ b`` in the dtype JAX gives a mixed product: both operands are
-    cast to their promoted type first (bf16 @ f32 runs, and returns, f32)."""
+    cast to their promoted type first (bf16 @ f32 runs, and returns, f32).
+    A DTensor ``a`` split on a leading dim other than the first (the
+    sequence, under ``seq_sp``) is gathered on that dim first, as
+    Megatron's sequence parallelism gathers before a projection, and the
+    product's gradient comes back placed as the product (``pin_grad``):
+    the product flattens the leading dims, forward and backward, which
+    DTensor (torch 2.11) refuses with an inner one split. A product whose
+    contraction is split comes back summed over the ranks in its own dtype,
+    before any cast (DTensor would otherwise cast the partial sums, e.g. an
+    f32 projection's to bf16, and add them rounded)."""
     rt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(rt) @ b.to(rt)
+    if not (is_dtensor(a) and a.ndim > 2):
+        return a.to(rt) @ b.to(rt)
+    pl = placements_of(a)
+    if any(p.is_shard() and 0 < p.dim < a.ndim - 1 for p in pl):
+        from torch.distributed.tensor import Replicate
+        a = a.redistribute(a.device_mesh, [
+            Replicate() if p.is_shard() and 0 < p.dim < a.ndim - 1 else p
+            for p in pl])
+    out = a.to(rt) @ b.to(rt)
+    if any(p.is_partial() for p in out.placements):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return pin_grad(out)
 
 
 def normal(gen: Optional[torch.Generator], shape, device) -> Tensor:
@@ -47,6 +72,12 @@ def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-6
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * params["scale"]
     return y.to(x.dtype)
+
+
+def norm_spec(kind: str):
+    """Logical sharding names of a norm's params (replicated)."""
+    return ({"scale": ("none",)} if kind == "rmsnorm"
+            else {"scale": ("none",), "bias": ("none",)})
 
 
 def init_layernorm(d: int, device=None) -> Dict[str, Tensor]:
@@ -161,10 +192,54 @@ def init_embedding(gen: Optional[torch.Generator], vocab: int, d: int,
 
 
 def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
+    """``table[ids]`` [..., D]. A DTensor table runs vocab-parallel on each
+    rank's shard (``_vocab_parallel_lookup``)."""
+    if is_dtensor(table) or is_dtensor(ids):
+        return shard(_vocab_parallel_lookup(table, ids), "batch", "seq",
+                     None)
     return table[ids.to(torch.long)]
+
+
+def _vocab_parallel_lookup(table: Tensor, ids: Tensor) -> Tensor:
+    """The lookup under ``local_map``, per mesh dim: where the table's
+    vocab is split, each rank looks up the ids in its range (zeros
+    elsewhere) and the rows are a partial sum; else where the ids are
+    split, they stay split and the table is gathered there (its embed
+    shards: the lookup needs whole rows); else all replicate. The table's
+    gradient is partial where the ids are split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, (table, ids) = as_dtensors(table, ids)
+    t_pl, i_pl, o_pl, g_pl = [], [], [], []
+    vocab = []   # (mesh dim, ways) of the vocab splits, outermost first
+    for i, (pt, pi) in enumerate(zip(placements_of(table),
+                                     placements_of(ids))):
+        if pt.is_shard(0):
+            col = (Shard(0), Replicate(), Partial(), Shard(0))
+            vocab.append((i, mesh.size(i)))
+        elif pi.is_shard(0):
+            col = (Replicate(), Shard(0), Shard(0), Partial())
+        else:
+            col = (Replicate(),) * 4
+        for lst, p in zip((t_pl, i_pl, o_pl, g_pl), col):
+            lst.append(p)
+    coord = mesh.get_coordinate()
+
+    def local(tl, il):
+        lo, rows = 0, table.shape[0]
+        for i, n in vocab:
+            rows //= n
+            lo += coord[i] * rows
+        idx = il.to(torch.long) - lo
+        inside = (idx >= 0) & (idx < tl.shape[0])
+        out = tl[torch.where(inside, idx, 0)]
+        return torch.where(inside[..., None], out, out.new_zeros(()))
+    return local_map(local, out_placements=o_pl, in_placements=(t_pl, i_pl),
+                     in_grad_placements=(g_pl, i_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
 
 
 def unembed(x: Tensor, table: Tensor) -> Tensor:
     """Tied output projection: ``einsum("bsd,vd->bsv")`` in the promoted
     dtype (bf16 x bf16 stays bf16)."""
-    return matmul(x, table.transpose(0, 1))
+    return shard(matmul(x, table.transpose(0, 1)), "batch", "seq", "vocab")

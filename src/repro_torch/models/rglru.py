@@ -67,6 +67,14 @@ def init_rglru_block(gen: Optional[torch.Generator], cfg: RGLRUConfig,
     }
 
 
+def rglru_block_spec(cfg: RGLRUConfig) -> Dict:
+    """Logical sharding names of ``init_rglru_block``'s leaves."""
+    return {"w_main": ("embed", "state"), "w_gate": ("embed", "state"),
+            "conv": ("none", "state"), "w_a": ("none", "state"),
+            "b_a": ("none",), "w_x": ("none", "state"), "b_x": ("none",),
+            "lambda": ("none",), "w_out": ("state", "embed")}
+
+
 def _gates(params, u: Tensor) -> Tuple[Tensor, Tensor]:
     """(a, sqrt(1 - a^2) * i * u), both f32."""
     uf = u.to(torch.float32)

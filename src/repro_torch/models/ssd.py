@@ -23,6 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (as_dtensors, is_dtensor,
+                                       placements_of, shard)
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -109,8 +111,48 @@ def init_ssd_block(gen: Optional[torch.Generator], cfg: SSDConfig,
     }
 
 
+def ssd_block_spec(cfg: SSDConfig) -> Dict:
+    """Logical sharding names of ``init_ssd_block``'s leaves."""
+    return {
+        "in_proj": ("embed", "state"), "conv": ("none", "state"),
+        "a_log": ("none",), "dt_bias": ("none",), "d_skip": ("none",),
+        "norm": {"scale": ("none",)}, "out_proj": ("state", "embed"),
+    }
+
+
 def _causal_conv(u: Tensor, w: Tensor) -> Tensor:
-    """Depthwise causal conv via shifted adds. u: [B,T,C]; w: [K,C]."""
+    """Depthwise causal conv via shifted adds. u: [B,T,C]; w: [K,C]. A
+    DTensor input runs on each rank's shard (``_causal_conv_mesh``)."""
+    if is_dtensor(u) or is_dtensor(w):
+        return _causal_conv_mesh(u, w)
+    return _causal_conv_plain(u, w)
+
+
+def _causal_conv_mesh(u: Tensor, w: Tensor) -> Tensor:
+    """The conv under ``local_map``, per mesh dim: u's batch split if it
+    is (w replicated there, its gradient partial), else its channels with
+    w's (the conv is depthwise), else both replicated; the time axis stays
+    whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, (u, w) = as_dtensors(u, w)
+    u_pl, w_pl, w_g = [], [], []
+    for pu in placements_of(u):
+        if pu.is_shard(0):
+            col = (Shard(0), Replicate(), Partial())
+        elif pu.is_shard(2):
+            col = (Shard(2), Shard(1), Shard(1))
+        else:
+            col = (Replicate(),) * 3
+        for lst, p in zip((u_pl, w_pl, w_g), col):
+            lst.append(p)
+    return local_map(_causal_conv_plain, out_placements=u_pl,
+                     in_placements=(u_pl, w_pl), in_grad_placements=(
+                         u_pl, w_g), device_mesh=mesh,
+                     redistribute_inputs=True)(u, w)
+
+
+def _causal_conv_plain(u: Tensor, w: Tensor) -> Tensor:
     k = w.shape[0]
     out = u * w[-1]
     for i in range(1, k):
@@ -131,6 +173,14 @@ def ssd_inputs(params: Dict[str, Tensor], x: Tensor, cfg: SSDConfig,
     di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
     # bf16 @ f32 is promoted to f32 (as JAX does): z, x, B, C, dt are f32
     zxbcdt = layers.matmul(x, params["in_proj"])
+    if is_dtensor(zxbcdt):
+        # the projection's columns are split over "state" in contiguous
+        # shards that cut across z, x, B, C and dt: gather them before the
+        # split (the reference's GSPMD reshards here too)
+        from torch.distributed.tensor import Replicate
+        zxbcdt = zxbcdt.redistribute(zxbcdt.device_mesh, [
+            Replicate() if p.is_shard(2) or p.is_partial() else p
+            for p in placements_of(zxbcdt)])
     z, xin, bmat, cmat, dt = torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
     if conv_hist is None:
@@ -140,7 +190,8 @@ def ssd_inputs(params: Dict[str, Tensor], x: Tensor, cfg: SSDConfig,
         conv_out = F.silu(_causal_conv(full, params["conv"])[
             :, conv_hist.shape[1]:])
     xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
-    return {"z": z, "x": xin.reshape(b, t, h, cfg.head_dim),
+    return {"z": z, "x": shard(xin.reshape(b, t, h, cfg.head_dim), "batch",
+                               "seq", "heads", None),
             "dt": softplus(dt.to(torch.float32) + params["dt_bias"]),
             "a": -torch.exp(params["a_log"]), "B": bmat, "C": cmat,
             "d_skip": params["d_skip"], "conv_in": conv_in}

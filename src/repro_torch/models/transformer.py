@@ -20,8 +20,10 @@ encoder-decoder adds ``enc_stages``, ``enc_final_norm`` and the decoder's
 learned positions ``dec_pos``, and its decoder layers ``cross_norm`` and
 ``cross``. Stages run as a Python loop over their repeats; JAX's
 ``remat``/``scan_layers`` choices have no effect on the result and none
-here. Sharding (``dist.sharding.shard``) and parameters packed for more
-than one model shard are ROADMAP Slice F.
+here. ``param_spec`` gives every leaf's logical sharding names; under a
+mesh (``dist.sharding.use_mesh``, parameters as DTensors placed by
+``distribute_tree``) the activations are constrained with ``shard`` at the
+reference's places and DTensor propagates the rest.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch import resolve_device
 from repro_torch.core import kan
 from repro_torch.core.kan import params_from_numpy  # noqa: F401 (the LM's)
 from repro_torch.core.quant import ASPConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
@@ -44,7 +47,6 @@ from repro_torch.models import ssd as ssd_lib
 Tensor = torch.Tensor
 
 ATTN_MIXERS = ("attn", "swa", "local", "bidir")
-MESH_SLICE = "ROADMAP Slice F (distribution)"
 
 
 def check_ported(spec: "LayerSpec") -> None:
@@ -122,7 +124,7 @@ class ModelConfig:
     kv_shard_mode: str = "head_dim"      # "head_dim" | "replicate" for KV
     moe_serve_stationary: bool = False   # weights-stationary MoE at decode
     pad_attn_heads: int = 0              # 0 = off; else multiple to pad to
-    seq_shard_activations: bool = False  # sharding: Slice F
+    seq_shard_activations: bool = False  # block outputs on "seq_sp"
 
     @property
     def resolved_head_dim(self) -> int:
@@ -296,6 +298,93 @@ def count_params(params) -> int:
 
 
 # ---------------------------------------------------------------------------
+# logical sharding names (``dist.sharding``)
+# ---------------------------------------------------------------------------
+
+def _attn_spec(cfg: ModelConfig, cross: bool = False) -> Dict:
+    kv_tail = "head_dim" if cfg.kv_shard_mode == "head_dim" else "none"
+    s = {"wq": ("embed", "heads", "none"),
+         "wk": ("embed", "kv_heads", kv_tail),
+         "wv": ("embed", "kv_heads", kv_tail),
+         "wo": ("heads", "none", "embed")}
+    if cfg.qkv_bias and not cross:
+        s["bq"] = ("heads", "none")
+        s["bk"] = ("kv_heads", kv_tail)
+        s["bv"] = ("kv_heads", kv_tail)
+    return s
+
+
+def _mlp_spec(cfg: ModelConfig) -> Dict:
+    s = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if cfg.gated_mlp:
+        s["wg"] = ("embed", "mlp")
+    return s
+
+
+def _layer_spec_tree(spec: LayerSpec, cfg: ModelConfig) -> Dict:
+    s: Dict[str, Any] = {}
+    nrm = layers.norm_spec(cfg.norm)
+    if spec.mixer in ATTN_MIXERS:
+        s["mixer_norm"] = nrm
+        s["attn"] = _attn_spec(cfg)
+    elif spec.mixer == "rglru":
+        s["mixer_norm"] = nrm
+        s["rglru"] = rglru_lib.rglru_block_spec(cfg.rglru_cfg)
+    elif spec.mixer == "ssd":
+        s["mixer_norm"] = nrm
+        s["ssd"] = ssd_lib.ssd_block_spec(cfg.ssd_cfg)
+    if spec.cross_attn:
+        s["cross_norm"] = nrm
+        s["cross"] = _attn_spec(cfg, cross=True)
+    if spec.ffn == "mlp":
+        s["ffn_norm"] = nrm
+        s["mlp"] = _mlp_spec(cfg)
+    elif spec.ffn == "moe":
+        s["ffn_norm"] = nrm
+        s["moe"] = moe_lib.moe_spec(cfg.moe_cfg)
+    elif spec.ffn == "kan":
+        lay = {"coeffs": ("embed", "none", "mlp"), "w_base": ("embed", "mlp")}
+        lay2 = {"coeffs": ("mlp", "none", "embed"), "w_base": ("mlp", "embed")}
+        s["ffn_norm"] = nrm
+        s["kan"] = {"up": lay, "down": lay2}
+    return s
+
+
+def stacked_spec(spec_tree):
+    """``spec_tree`` with the stacked layer axis ``"layers"`` prepended to
+    every leaf (a repeated stage's leaves carry ``[repeats]`` first)."""
+    if isinstance(spec_tree, tuple):
+        return ("layers",) + spec_tree
+    if isinstance(spec_tree, Mapping):
+        return {k: stacked_spec(v) for k, v in spec_tree.items()}
+    return [stacked_spec(v) for v in spec_tree]
+
+
+def _stage_spec(stage: Stage, cfg: ModelConfig) -> Dict:
+    blk = {f"l{i}": _layer_spec_tree(sp, cfg)
+           for i, sp in enumerate(stage.block)}
+    return blk if stage.repeats == 1 else stacked_spec(blk)
+
+
+def param_spec(cfg: ModelConfig) -> Dict:
+    """Logical sharding names of every ``init_model`` leaf (the
+    reference's tree, leaf for leaf)."""
+    spec: Dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "final_norm": layers.norm_spec(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        spec["unembed"] = ("vocab", "embed")
+    spec["stages"] = [_stage_spec(st, cfg) for st in stages_for(cfg)]
+    if cfg.family == "encdec":
+        spec["enc_stages"] = [_stage_spec(st, cfg)
+                              for st in stages_for(cfg, encoder=True)]
+        spec["enc_final_norm"] = layers.norm_spec(cfg.norm)
+        spec["dec_pos"] = ("none", "embed")
+    return spec
+
+
+# ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
@@ -341,7 +430,8 @@ def _init_mlp(gen, cfg: ModelConfig, device) -> Dict:
     return p
 
 
-def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device) -> Dict:
+def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device,
+                n_model: int = 1) -> Dict:
     check_ported(spec)
     p: Dict[str, Any] = {}
     norm = layers.NORM_INIT[cfg.norm]
@@ -362,19 +452,21 @@ def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device) -> Dict:
         p["mlp"] = _init_mlp(gen, cfg, device)
     elif spec.ffn == "moe":
         p["ffn_norm"] = norm(cfg.d_model, device)
-        p["moe"] = moe_lib.init_moe(gen, cfg.moe_cfg, device=device)
+        p["moe"] = moe_lib.init_moe(gen, cfg.moe_cfg, device=device,
+                                    n_model=n_model)
     elif spec.ffn == "kan":
         p["ffn_norm"] = norm(cfg.d_model, device)
         p["kan"] = kan.init(gen, cfg.kan_spec, device=device)
     return p
 
 
-def _init_stage(gen, stage: Stage, cfg: ModelConfig, device) -> Dict:
+def _init_stage(gen, stage: Stage, cfg: ModelConfig, device,
+                n_model: int = 1) -> Dict:
     """A stage's params, its repeats stacked. Each repeat is copied into
     the stack as soon as it is drawn, so that making a stage takes its own
     size and one block's, not twice its size."""
     def init_block():
-        return {f"l{i}": _init_layer(gen, sp, cfg, device)
+        return {f"l{i}": _init_layer(gen, sp, cfg, device, n_model)
                 for i, sp in enumerate(stage.block)}
     block = init_block()
     if stage.repeats == 1:
@@ -401,13 +493,9 @@ def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
     """Random weights in the JAX layout, drawn from ``seed`` (an int or a
     generator on ``device``). ``device=None`` is the card; ``"meta"`` gives
     shapes only (parameter counts at full width without allocating). MoE
-    experts are packed for one model shard: ``n_model > 1`` (a mesh's
-    packing) is Slice F."""
+    experts are packed device-major for ``n_model`` model shards (the
+    mesh's model axis; ``moe.init_moe``)."""
     device = resolve_device(device)
-    if n_model != 1:
-        raise NotImplementedError(
-            f"parameters packed for {n_model} model shards are not ported "
-            f"yet: {MESH_SLICE}")
     gen = generator(seed, device)
     params: Dict[str, Any] = {
         "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model,
@@ -418,10 +506,10 @@ def init_model(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
         params["unembed"] = layers.init_embedding(
             gen, cfg.vocab, cfg.d_model, dtype=cfg.param_dtype,
             device=device)
-    params["stages"] = [_init_stage(gen, st, cfg, device)
+    params["stages"] = [_init_stage(gen, st, cfg, device, n_model)
                         for st in stages_for(cfg)]
     if cfg.family == "encdec":
-        params["enc_stages"] = [_init_stage(gen, st, cfg, device)
+        params["enc_stages"] = [_init_stage(gen, st, cfg, device, n_model)
                                 for st in stages_for(cfg, encoder=True)]
         params["enc_final_norm"] = layers.NORM_INIT[cfg.norm](cfg.d_model,
                                                               device)
@@ -459,7 +547,10 @@ def qkv(p, xn: Tensor, cfg: ModelConfig, which: str = "attn"
         q = q + a["bq"].to(cfg.dtype)
         k = k + a["bk"].to(cfg.dtype)
         v = v + a["bv"].to(cfg.dtype)
-    return q, k, v
+    kv_tail = "head_dim" if cfg.kv_shard_mode == "head_dim" else None
+    return (shard(q, "batch", "seq", "heads", None),
+            shard(k, "batch", "seq", "kv_heads", kv_tail),
+            shard(v, "batch", "seq", "kv_heads", kv_tail))
 
 
 def _attn_mixer(p, x: Tensor, cfg: ModelConfig, spec: LayerSpec,
@@ -477,6 +568,7 @@ def _attn_mixer(p, x: Tensor, cfg: ModelConfig, spec: LayerSpec,
         o = attn_lib.chunked_attention(q, k, v,
                                        causal=(spec.mixer != "bidir"),
                                        kv_chunk=cfg.attn_kv_chunk)
+    o = shard(o, "batch", "seq", "heads", None)
     return heads_out(o, p["attn"]["wo"], cfg.dtype)
 
 
@@ -506,6 +598,7 @@ def mlp_ffn(p, x: Tensor, cfg: ModelConfig) -> Tensor:
         h = act(layers.matmul(xn, p["mlp"]["wg"].to(cfg.dtype))) * h
     else:
         h = act(h)
+    h = shard(h, "batch", "seq", "mlp")
     return layers.matmul(h, p["mlp"]["wo"].to(cfg.dtype))
 
 
@@ -561,7 +654,10 @@ def _apply_layer(p, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
                                             ).to(x.dtype)
     if spec.cross_attn and enc_out is not None:
         x = x + cross_mixer(p, x, cfg, enc_out)[0]
-    return apply_ffn_aux(p, x, spec, cfg)
+    x, aux = apply_ffn_aux(p, x, spec, cfg)
+    x = shard(x, "batch", "seq_sp" if cfg.seq_shard_activations else "seq",
+              None)
+    return x, aux
 
 
 def prescan_cast(stage_params, cfg: ModelConfig):

@@ -12,7 +12,12 @@ carries across leaf by leaf.
   dims (``{"vr", "vc"}``), a smaller one the full ``{"v"}``.
 
 Updates are plain f32 tensor arithmetic, leaf by leaf, in the reference's
-order of operations; ``step`` is an int32 scalar tensor.
+order of operations; ``step`` is an int32 scalar tensor. With DTensor
+parameters (a mesh, ``dist.sharding``) every moment is a DTensor placed as
+its parameter (Adafactor's row and column moments as the parameter less the
+reduced dim), and the reductions (the global norm, Adafactor's factored
+means and its update RMS) are DTensor reductions over the whole tensor;
+call ``update`` inside ``dist.sharding.use_mesh``.
 """
 from __future__ import annotations
 
@@ -58,6 +63,26 @@ class _Out:
 
     def __init__(self, *items):
         self.items = items
+
+
+def _zeros_f32(p: Tensor, drop: int = -1) -> Tensor:
+    """f32 zeros shaped as ``p`` (less dim ``drop`` if given), placed as
+    ``p`` when it is a DTensor: a dropped dim's shards replicate and the
+    shards of later dims move down one."""
+    from repro_torch.dist.sharding import is_dtensor, placements_of
+    shape = tuple(s for i, s in enumerate(p.shape) if i != drop)
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+    pl = []
+    for q in placements_of(p):
+        if not q.is_shard() or (drop >= 0 and q.dim == drop):
+            pl.append(Replicate())
+        else:
+            pl.append(Shard(q.dim - 1 if 0 <= drop < q.dim else q.dim))
+    return dzeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                  placements=pl)
 
 
 def _unzip(out, n: int) -> list:
@@ -133,7 +158,7 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95,
 
     def init(params):
         def zeros(p):
-            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            z = _zeros_f32(p)
             return _q8(z) if quantize_moments else z
         step = torch.zeros((), dtype=torch.int32,
                            device=tree_leaves(params)[0].device)
@@ -190,14 +215,10 @@ def adafactor(lr: Callable, decay: float = 0.8, eps: float = 1e-30,
     def init(params):
         def make(p):
             f = _factored_dims(p.shape)
-            kw = dict(dtype=torch.float32, device=p.device)
             if f is None:
-                return {"v": torch.zeros(p.shape, **kw)}
+                return {"v": _zeros_f32(p)}
             d0, d1 = f
-            row = tuple(s for i, s in enumerate(p.shape) if i != d1)
-            col = tuple(s for i, s in enumerate(p.shape) if i != d0)
-            return {"vr": torch.zeros(row, **kw),
-                    "vc": torch.zeros(col, **kw)}
+            return {"vr": _zeros_f32(p, drop=d1), "vc": _zeros_f32(p, drop=d0)}
         step = torch.zeros((), dtype=torch.int32,
                            device=tree_leaves(params)[0].device)
         return {"mom": tree_map(make, params), "step": step}

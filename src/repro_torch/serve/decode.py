@@ -1,6 +1,6 @@
 """Serving: prefill (build caches), single-token decode steps and the paged
-engine's chunked prefill (port of ``repro.serve.decode``; its sharding
-``*_spec`` functions are Slice F).
+engine's chunked prefill (port of ``repro.serve.decode``), and the
+caches' logical sharding names (``cache_spec``, ``paged_cache_spec``).
 
 Cache layouts per layer (stacked [repeats, ...] inside a repeated stage):
   attn        — K/V caches [B, T, Kv, hd] in the compute dtype, T =
@@ -138,6 +138,49 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
                 (r,) + (1,) * x.ndim), blk)
         out.append(blk)
     return out
+
+
+def _cache_spec(cfg: ModelConfig, paged: bool) -> list:
+    kv_tail = "head_dim" if cfg.kv_shard_mode == "head_dim" else "none"
+
+    def layer_spec(spec: LayerSpec):
+        s = {}
+        if spec.mixer == "attn" and paged:
+            # page pool: page axis replicated, heads sharded as usual
+            s["k"] = ("none", "none", "kv_heads", kv_tail)
+            s["v"] = ("none", "none", "kv_heads", kv_tail)
+        elif spec.mixer in ("attn", "swa", "local"):
+            s["k"] = ("batch", "seq", "kv_heads", kv_tail)
+            s["v"] = ("batch", "seq", "kv_heads", kv_tail)
+        elif spec.mixer == "ssd":
+            s["state"] = ("batch", "heads", "none", "none")
+            s["conv_buf"] = ("batch", "none", "state")
+        elif spec.mixer == "rglru":
+            s["h"] = ("batch", "state")
+            s["conv_buf"] = ("batch", "none", "state")
+        if spec.cross_attn:
+            s["ck"] = ("batch", "seq", "kv_heads", kv_tail)
+            s["cv"] = ("batch", "seq", "kv_heads", kv_tail)
+        return s
+    out = []
+    for stage in tfm.stages_for(cfg):
+        blk = {f"l{i}": layer_spec(sp) for i, sp in enumerate(stage.block)}
+        out.append(tfm.stacked_spec(blk) if stage.repeats > 1 else blk)
+    return out
+
+
+def cache_spec(cfg: ModelConfig) -> list:
+    """Logical sharding names for the ``init_cache`` tree (kv_heads falls
+    back to head_dim sharding when the head count does not divide the model
+    axis)."""
+    return _cache_spec(cfg, paged=False)
+
+
+def paged_cache_spec(cfg: ModelConfig) -> list:
+    """Logical sharding names for the ``init_paged_cache`` tree: page
+    pools replicate their page axis and shard kv_heads/head_dim exactly
+    like monolithic rows; per-slot leaves keep the ``cache_spec`` names."""
+    return _cache_spec(cfg, paged=True)
 
 
 def chunk_tokens_for(cfg: ModelConfig, page_size: int) -> Optional[int]:

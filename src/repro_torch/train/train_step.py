@@ -6,6 +6,13 @@ B / accum rows, taken in order in a Python loop (the reference's
 ``lax.scan``); each microbatch's gradients come from ``torch.autograd.grad``
 over the parameter leaves and accumulate in ``grad_dtype``. Nothing is
 compiled: the step is eager PyTorch over the parameter tree.
+
+Under a mesh the parameters, the optimizer's moments and the batch are
+DTensors (``dist.sharding.distribute_tree``); call the step inside
+``dist.sharding.use_mesh``. The gradients come back placed as their
+parameters, the global norm and the clip are DTensor reductions over whole
+tensors, and the returned metrics are plain tensors, the same on every
+rank.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           tree_leaves, tree_map)
@@ -41,6 +49,11 @@ def value_and_grad(loss_fn: Callable, params, *args):
             tree_map(lambda _: next(grads), params))
 
 
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor metric as the whole tensor, the same on every rank."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def make_train_step(model_cfg: tfm.ModelConfig, opt: Optimizer,
                     tcfg: TrainConfig,
                     loss_fn: Optional[Callable] = None) -> Callable:
@@ -52,15 +65,16 @@ def make_train_step(model_cfg: tfm.ModelConfig, opt: Optimizer,
 
     def train_step(params, opt_state, batch):
         dev = tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: v if is_dtensor(v) else torch.as_tensor(v, device=dev)
+                 for k, v in batch.items()}
         if accum == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, model_cfg,
                                                   batch)
         else:
             mbs = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
                    for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=tcfg.grad_dtype, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=tcfg.grad_dtype), params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             per_mb = []
             for i in range(accum):
@@ -79,6 +93,6 @@ def make_train_step(model_cfg: tfm.ModelConfig, opt: Optimizer,
         params, opt_state = opt.update(grads, opt_state, params)
         out: Dict[str, torch.Tensor] = dict(metrics)
         out.update({"loss": loss, "grad_norm": gnorm})
-        return params, opt_state, out
+        return params, opt_state, {k: _plain(v) for k, v in out.items()}
 
     return train_step

@@ -554,15 +554,18 @@ def test_padded_heads_regroup_as_in_the_reference(jx):
     assert differ == [h for h in range(40) if h // 3 != h // 4]
 
 
-def test_unported_options_still_raise():
-    """Parameters packed for more than one model shard wait for Slice F;
-    cross attention and the encoder-decoder family are ported (their
-    parity is ``test_torch_encdec.py``'s)."""
+def test_packed_init_and_cross_attention_are_ported():
+    """Parameters packed for more than one model shard (a mesh's model
+    axis) pack only MoE experts: a dense model's are the same draws at any
+    ``n_model``; cross attention and the encoder-decoder family are ported
+    (their parity is ``test_torch_encdec.py``'s)."""
     cfg = dataclasses.replace(
         tconfigs.get_arch("mistral_nemo_12b", smoke=True).model,
         block_pattern=(ttfm.LayerSpec("attn", "mlp", cross_attn=True),))
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        ttfm.init_model(0, cfg, device="cpu", n_model=2)
+    one = ttfm.tree_leaves(ttfm.init_model(0, cfg, device="cpu"))
+    two = ttfm.tree_leaves(ttfm.init_model(0, cfg, device="cpu", n_model=2))
+    assert len(one) == len(two)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
     assert "cross" in ttfm.init_model(0, cfg, device="cpu"
                                       )["stages"][0]["l0"]
     assert "enc_stages" in ttfm.init_model(

@@ -100,11 +100,36 @@ def test_dtype_cast_and_bf16_words_on_restore(tmp_path):
     assert torch.equal(restored["h"], tree["h"])
 
 
-def test_restore_onto_a_mesh_names_slice_f(tmp_path):
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A gloo process group of this process alone (a 1x1 mesh)."""
+    import torch.distributed as dist
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_restore_onto_a_mesh(tmp_path, one_rank_group):
+    """``restore(shardings=)``: a leaf with a ``NamedSharding`` comes back
+    as a DTensor with those placements, a None one as a plain tensor, the
+    values bitwise the saved ones."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate
+    from repro_torch.dist import sharding as tsh
     tree = _tree(4)
-    ckpt.save(str(tmp_path), 1, tree)
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        ckpt.restore(str(tmp_path), tree, shardings=tree)
+    ckpt.save(str(tmp_path / "ck"), 1, tree)
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    rep = tsh.NamedSharding(mesh, (Replicate(), Replicate()))
+    paths = ckpt._leaf_paths(tree)
+    first = sorted(paths)[0]
+    shardings = ckpt._rebuild(tree, {k: (rep if k == first else None)
+                                     for k in paths})
+    got, _ = ckpt.restore(str(tmp_path / "ck"), tree, shardings=shardings)
+    for key, leaf in ckpt._leaf_paths(got).items():
+        assert tsh.is_dtensor(leaf) == (key == first), key
+        value = leaf.full_tensor() if tsh.is_dtensor(leaf) else leaf
+        assert torch.equal(value, paths[key]), key
 
 
 # --- across the packages -----------------------------------------------------
@@ -219,8 +244,25 @@ def test_train_driver_preemption_checkpoints_and_stops(tmp_path,
     assert len(out["losses"]) == 1 and ckpt.latest_step(ck) == 1
 
 
-def test_host_mesh_and_model_parallel_name_slice_f():
-    for flags in (["--host-mesh"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="Slice F"):
-            ttrain_launch.main(["--arch", "kan_llm", "--smoke",
-                                "--device", "cpu", *flags])
+def test_host_mesh_and_model_parallel_flags(tmp_path, monkeypatch):
+    """``--model-parallel`` without ``--host-mesh`` is ignored (the
+    reference's launcher); ``--host-mesh`` joins the process group the
+    environment describes (here one rank: a 1x1 mesh) and gives the
+    unsharded losses; a model axis that does not divide the world is
+    refused. ``test_torch_launch_mesh.py`` runs the launcher on 2x2."""
+    argv = ["--arch", "kan_llm", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "2", "--seq", "8", "--kan-backend", "fused"]
+    ref = ttrain_launch.main(argv)["losses"]
+    assert ttrain_launch.main(argv + ["--model-parallel", "2"])[
+        "losses"] == ref
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("REPRO_TORCH_STORE", str(tmp_path / "store"))
+    got = ttrain_launch.main(argv + ["--host-mesh"])["losses"]
+    assert got == pytest.approx(ref, rel=1e-5)
+    monkeypatch.setenv("REPRO_TORCH_STORE", str(tmp_path / "store2"))
+    with pytest.raises(ValueError, match="does not divide"):
+        ttrain_launch.main(argv + ["--host-mesh", "--model-parallel", "2"])
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -261,18 +261,20 @@ def test_registry_and_shapes_match_jax():
             jget(name, smoke=True).name
 
 
-def test_unported_layers_name_their_slice():
-    """What is left unported needs a mesh and names Slice F: parameters
-    packed for several model shards. Cross attention (on any mixer) and
-    the encoder-decoder family are ported; a layer part no package knows
-    is a ValueError."""
+def test_layers_pack_for_model_shards_and_unknown_parts_raise():
+    """Parameters packed for several model shards (the mesh's model axis)
+    are the same draws as for one when no layer has experts; cross
+    attention (on any mixer) and the encoder-decoder family are ported; a
+    layer part no package knows is a ValueError."""
     for spec in (ttfm.LayerSpec("attn", "mlp", cross_attn=True),
                  ttfm.LayerSpec("ssd", "mlp", cross_attn=True)):
         cfg = dataclasses.replace(
             tconfigs.get_arch("mistral_nemo_12b", smoke=True).model,
             block_pattern=(spec,))
-        with pytest.raises(NotImplementedError, match="Slice F"):
-            ttfm.init_model(0, cfg, device="cpu", n_model=4)
+        four = ttfm.init_model(0, cfg, device="cpu", n_model=4)
+        one = ttfm.init_model(0, cfg, device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(
+            ttfm.tree_leaves(four), ttfm.tree_leaves(one)))
         assert "cross" in ttfm.init_model(0, cfg, device="cpu"
                                           )["stages"][0]["l0"]
     cfg = tconfigs.get_arch("whisper_base", smoke=True).model

@@ -212,8 +212,8 @@ def test_apply_moe_equals_the_reference(jx, shared, cf):
 
 def test_init_moe_layout_and_packed_weights(jx):
     """The reference's tree and dtypes (the router f32 even at bf16
-    params); weights packed for more than one model shard are refused,
-    naming the slice that brings them."""
+    params); weights packed for more model shards have the reference's
+    device-major shapes, and need a mesh with that model axis to run."""
     for dt, jdt in ((torch.float32, jx.jnp.float32),
                     (torch.bfloat16, jx.jnp.bfloat16)):
         jc = jx.moe.MoEConfig(d_model=8, d_ff=6, n_experts=4, top_k=2,
@@ -233,11 +233,15 @@ def test_init_moe_layout_and_packed_weights(jx):
             assert tuple(t.shape) == leaf.shape, keys
             assert str(t.dtype).split(".")[-1] == str(leaf.dtype), keys
     tc = tmoe.MoEConfig(d_model=8, d_ff=6, n_experts=4, top_k=2)
-    one = tmoe.init_moe(torch.Generator().manual_seed(0), tc, device="cpu")
-    # the reference's packing for 2 model shards: [2, E / 2, D, F]
-    packed = {k: (v.reshape((2, 2) + v.shape[2:]) if k != "router" else v)
-              for k, v in one.items()}
-    with pytest.raises(NotImplementedError, match="Slice F"):
+    jc = jx.moe.MoEConfig(d_model=8, d_ff=6, n_experts=4, top_k=2)
+    for n_model in (2, 8):     # experts split; d_ff split when E < n_model
+        packed = tmoe.init_moe(torch.Generator().manual_seed(0), tc,
+                               device="cpu", n_model=n_model)
+        want = jx.jax.eval_shape(lambda: jx.moe.init_moe(
+            jx.jax.random.PRNGKey(0), jc, n_model=n_model))
+        assert {k: tuple(v.shape) for k, v in packed.items()} == {
+            k: v.shape for k, v in want.items()}
+    with pytest.raises(ValueError, match="need a mesh"):
         tmoe.apply_moe(packed, torch.zeros((1, 2, 8)), tc)
 
 

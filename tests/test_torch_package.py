@@ -38,6 +38,8 @@ SERVING_MODULES = ("serve.engine", "serve.paging", "serve.scheduler",
 TRAINING_MODULES = ("optim", "optim.optimizers", "train.train_step",
                     "checkpoint.checkpoint", "launch.train",
                     "configs.whisper_base", "configs.internvl2_76b")
+MESH_MODULES = ("dist.sharding", "dist.compress", "launch.mesh",
+                "examples.elastic_restart")
 
 
 def test_imports_with_jax_and_repro_blocked():
@@ -64,9 +66,9 @@ def test_imports_with_jax_and_repro_blocked():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 15
-    # the serving and the training slices' modules among them
+    # the serving, training and mesh slices' modules among them
     assert {f"repro_torch.{m}" for m in SERVING_MODULES + TRAINING_MODULES
-            } <= names
+            + MESH_MODULES} <= names
 
 
 def test_sources_name_no_jax_or_repro():
@@ -94,6 +96,15 @@ def test_no_message_names_the_router_slice():
                        "is not ported yet: ROADMAP Slice D4"):
             assert phrase not in text, (path, phrase)
     assert not hasattr(engine, "ROUTER_SLICE")
+
+
+def test_only_serving_under_a_mesh_names_slice_f():
+    """Training under a mesh is ported: of the package's modules only the
+    serving launcher (``--mesh-model``) still names ROADMAP Slice F."""
+    naming = sorted(p.relative_to(SRC).as_posix()
+                    for p in (SRC / "repro_torch").rglob("*.py")
+                    if "Slice F" in p.read_text())
+    assert naming == ["repro_torch/launch/serve.py"]
 
 
 def test_entry_points_need_a_card_unless_told(monkeypatch):
