@@ -357,17 +357,18 @@ Phases (any failed check raises, and the script exits non-zero):
    ``kan_llm`` on ``fused`` at 16 x 512, AdamW, remat: step 0's
    gradients on 2x2 against 15c.1's single-card ones at its bar (``atol
    1e-5, rtol 1e-5`` plus twice the CPU's f32-vs-f64 reach, every entry);
-   ``launch.train --host-mesh --model-parallel 2`` for 20 steps on 2x2
-   saving at step 10, and a second launch resuming steps 10-20 on 1x2
+   ``launch.train --host-mesh --model-parallel 2`` for 4 steps on 2x2
+   saving at step 2, and a second launch resuming steps 2-4 on 1x2
    from that checkpoint, every restored leaf bitwise the saved one
    (``--verify-restore``), every step's loss within ``MESH_LOSS_REL`` of
    the same command run without the mesh, ``kan_fused`` 16 launches a
    step on every rank; ``kan_fused`` at a rank's shapes, as in phase 3.
-   (b) mamba2-1.3b on 1x2, all 48 layers unless the two ranks' peak at 2
-   and 3 layers predicts past ``MEM_SHARE`` of the card: step 0's
-   gradients against rank 0's single-card run at the same bar, the reach
-   being that run's bf16 against its f32 gradients; 3 AdamW steps,
-   ``ssd_scan`` 96 launches a step on each rank, and at a rank's shape
+   (b) mamba2-1.3b on 1x2, its first 3 layers (a depth cut for the
+   run's time limit; fewer if the two ranks' peak at 2 and 3 layers
+   predicts past ``MEM_SHARE`` of the card): step 0's gradients against
+   rank 0's single-card run at the same bar, the reach being that run's
+   bf16 against its f32 gradients; 3 AdamW steps, ``ssd_scan`` 2 launches
+   a layer a step on each rank, and at a rank's shape
    [2, 2048, 32, 64] against its plain versions. (c) mixtral-8x7b's
    first layer on 1x2 (4 experts a rank; one layer, as rank 0 keeps the
    single-card tree and two sets of its gradients beside the mesh's on
@@ -379,7 +380,35 @@ Phases (any failed check raises, and the script exits non-zero):
    the rounding dropped, every rank's mean bitwise the same and within
    0.02 of the exact mean. Per rank: ms a step, the device's busy ms and
    idle share (profiler), peak GB, and the calls and input bytes of each
-   collective DTensor issued in a step.
+   collective DTensor issued in a step. The ranks are host-bound, so the
+   tasks run in pairs, side by side on the card and its host (their times
+   include each other's load): (a)'s gradients and (d) beside (b), then
+   (a)'s two launches beside (c).
+17. Serving under a ``DeviceMesh`` of ranks sharing the card (gloo), each
+   rank one process of ``launch.serve --mesh-model`` under ``torchrun``
+   (``--rank-task kan17|mamba17``), launch-counted; (a) and (b) side by
+   side, (c) beside them in a process of its own. (a) ``kan_llm`` on
+   ``fused`` at full width on 2x2: 13a's engine (16 slots, pages of 64,
+   the 128-token common prefix) on the launcher's trace of 12 requests
+   (prompts of 256-512 after the prefix, 32-64 new tokens, ``--check``);
+   every rank's tokens equal, and equal to the single card's solo runs up
+   to the first near tie (13a's rule); ``kan_fused`` 8 launches per decode
+   tick and per chunk on every rank, and at a rank's tick [8, 256] / [8,
+   85] and chunk [64, 256] / [64, 85] inputs against its plain version, as
+   in phase 3. (b) mamba2-1.3b at full width on 1x2, computing in f32:
+   2 requests of 384-768 tokens, 4-8 new, 1 slot; tokens as (a), and each
+   request's carried state (every layer's) within twice the bf16 reach
+   of its solo prefill (13b's rule); ``ssd_scan`` 48 launches per chunk
+   on each rank, and at a rank's carried-state chunk against its plain
+   versions. Both (a) and (b) compare at least one clear step, and rank 0
+   kept an input at every kernel shape it checks. Per rank: tokens/s,
+   TTFT and TPOT p50, a profiled window of 4 decode ticks (device busy ms,
+   idle share), peak GB, one decode tick's collectives (calls, input
+   bytes, ring bytes moved by ``analysis.collective_traffic``). (c) The
+   dry run (``launch.dryrun``) in a process of its own: the reference's
+   CI cell (mamba2-1.3b SMOKE, decode_32k, 4x2) and ``kan_llm`` decode_32k
+   on 16x16 (256 fake ranks), each ``ok``, with rank 0's bytes and
+   traffic.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -406,8 +435,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 from torch.distributed.tensor import Replicate  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
+from repro_torch.analysis import CollectiveBytes  # noqa: E402
 from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
 from repro_torch.configs import kan_llm, kan_llm_int8  # noqa: E402
 from repro_torch.configs import mistral_nemo_12b, mixtral_8x7b  # noqa: E402
@@ -3986,19 +4015,37 @@ def training_phase(timer, dev):
 # --- phase 16: LM training sharded over a DeviceMesh of ranks on the card ---
 
 MESH_BACKEND = "gloo"      # NCCL refuses two ranks on one card
-MESH_KAN = dict(mesh=(2, 2), batch=16, seq=512, steps=20, resume_at=10)
-MESH_MAMBA = dict(mesh=(1, 2), batch=2, seq=2048, steps=3)
+MESH_KAN = dict(mesh=(2, 2), batch=16, seq=512, steps=4, resume_at=2)
+MESH_MAMBA = dict(mesh=(1, 2), batch=2, seq=2048, steps=3, layers=3)
 MESH_MIXTRAL = dict(mesh=(1, 2), layers=1, batch=2, seq=256)
 MESH_LOSS_REL = 1e-4       # a mesh run's loss against the single card's
 PSUM_SHAPE = (8, 4096)     # the reference's test: one row per rank
 PSUM_REL = 0.02
 SRC = Path(__file__).resolve().parent / "src"
+# phase 17: serving under a mesh of gloo ranks sharing the card, through
+# launch.serve --mesh-model 2: kan_llm on fused at full width on 2x2 with
+# phase 13a's engine (16 slots, pages of 64, the 128-token common prefix,
+# prompts up to 512 and 64 new tokens; 12 requests, the launcher's
+# prompts of 256-512 and budgets of 32-64), mamba2-1.3b at full width on
+# 1x2 with 13b's pages and chunks, computing in f32 so that its tokens can
+# be held to F32_PATH_BAR (at bf16 twice the bf16 reach covers every
+# step's lead); 2 requests of 384-768 tokens, 4-8 new, 1 slot so that
+# --check sees a slot reused; then the dry run on the fake group: the
+# reference's CI cell and one production cell
+SERVE17_KAN = dict(mesh=(2, 2), requests=12, slots=16, page_size=64,
+                   prompt_len=512, common_prefix=128, new_tokens=64)
+SERVE17_MAMBA = dict(mesh=(1, 2), requests=2, slots=1, page_size=64,
+                     prompt_len=768, common_prefix=0, new_tokens=8,
+                     dtype=torch.float32)
+SERVE17_PROFILE = (3, 4)   # unprofiled ticks, then profiled ticks
+DRYRUN17 = (("mamba2_1p3b", "decode_32k", True, "4x2"),
+            ("kan_llm", "decode_32k", False, ""))
 
 
-def torchrun(n, args, log, timeout=900):
-    """``n`` ranks of ``args`` under ``torchrun --standalone`` (one
-    process a rank, all on the card); the full output goes to ``log``.
-    Returns (stdout, seconds); fails the phase on a nonzero exit."""
+def torchrun_start(n, args, log):
+    """Start ``n`` ranks of ``args`` under ``torchrun --standalone`` (one
+    process a rank, all on the card), its standard output to ``log`` and
+    its errors to ``log`` + ``.err``; returns the run for ``torchrun_all``."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), *args]
     # ranks sharing the card free and reuse memory in turns: expandable
@@ -4006,46 +4053,70 @@ def torchrun(n, args, log, timeout=900):
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
         [str(SRC), os.environ.get("PYTHONPATH", "")]),
         PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                         timeout=timeout)
-    Path(log).write_text(out.stdout + "\n" + out.stderr)
-    err = [ln for ln in out.stderr.splitlines() if "Error" in ln
-           or "error:" in ln or "Traceback" in ln][-12:]
-    check(out.returncode == 0, f"torchrun {' '.join(args[:3])}: exit "
-          f"{out.returncode}; " + " | ".join(err))
-    return out.stdout, time.perf_counter() - t0
+    log = Path(log)
+    with open(log, "w") as out, open(f"{log}.err", "w") as err:
+        proc = subprocess.Popen(cmd, env=env, stdout=out, stderr=err)
+    return dict(proc=proc, t0=time.perf_counter(), args=args, log=log)
 
 
-def rank_task(name, n, out_dir, timeout=900):
-    """``RANK_TASKS[name]`` on ``n`` ranks of this script; returns each
-    rank's result, in rank order."""
-    torchrun(n, [__file__, "--rank-task", name, "--out", str(out_dir)],
-             Path(out_dir) / f"{name}.log", timeout)
-    return [json.loads((Path(out_dir) / f"{name}.{r}.json").read_text())
-            for r in range(n)]
+def torchrun_all(runs, timeout=900):
+    """Wait for every started run of ``runs`` (side by side); each one's
+    seconds end at its own exit. A nonzero exit, or a run past ``timeout``
+    seconds, fails the phase and stops the runs still going. Returns each
+    run's (standard output, seconds)."""
+    secs = {}
+    try:
+        while len(secs) < len(runs):
+            for i, r in enumerate(runs):
+                if i in secs:
+                    continue
+                rc = r["proc"].poll()
+                took = time.perf_counter() - r["t0"]
+                if rc is None:
+                    check(took < timeout, f"torchrun {' '.join(r['args'][:3])}"
+                          f": past {timeout} s")
+                    continue
+                secs[i] = took
+                err = [ln for ln in Path(f"{r['log']}.err").read_text()
+                       .splitlines() if "Error" in ln or "error:" in ln
+                       or "Traceback" in ln][-12:]
+                check(rc == 0, f"torchrun {' '.join(r['args'][:3])}: exit "
+                      f"{rc}; " + " | ".join(err))
+            time.sleep(0.2)
+    except BaseException:
+        torchrun_stop(runs)
+        raise
+    return [(r["log"].read_text(), secs[i]) for i, r in enumerate(runs)]
 
 
-COLLECTIVES = ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor",
-               "all_to_all_single", "broadcast")
+def torchrun_stop(runs):
+    """Stop every run of ``runs`` still going (torchrun stops its ranks)."""
+    for r in runs:
+        if r["proc"].poll() is None:
+            r["proc"].terminate()
+            try:
+                r["proc"].wait(60)
+            except subprocess.TimeoutExpired:
+                r["proc"].kill()
+                r["proc"].wait()
 
 
-class CollectiveBytes(TorchDispatchMode):
-    """While active, the calls and input bytes of every functional
-    collective (what DTensor issues), by op."""
+def torchrun(n, args, log, timeout=900):
+    """``n`` ranks of ``args`` under ``torchrun --standalone``, to their
+    end; returns (standard output, seconds)."""
+    return torchrun_all([torchrun_start(n, args, log)], timeout)[0]
 
-    def __init__(self):
-        super().__init__()
-        self.calls, self.bytes = {}, {}
 
-    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
-        ns, _, op = str(func.overloadpacket).rpartition(".")
-        if ns.endswith("_c10d_functional") and op in COLLECTIVES:
-            n = sum(a.numel() * a.element_size() for a in args
-                    if isinstance(a, torch.Tensor))
-            self.calls[op] = self.calls.get(op, 0) + 1
-            self.bytes[op] = self.bytes.get(op, 0) + n
-        return func(*args, **(kwargs or {}))
+def rank_tasks(tasks, out_dir, timeout=900):
+    """``RANK_TASKS[name]`` on ``n`` ranks of this script for every (name,
+    n) of ``tasks``, side by side (a torchrun each, all on the card);
+    returns each task's (results in rank order, seconds)."""
+    runs = [torchrun_start(n, [__file__, "--rank-task", name, "--out",
+                               str(out_dir)], Path(out_dir) / f"{name}.log")
+            for name, n in tasks]
+    secs = [s for _, s in torchrun_all(runs, timeout)]
+    return [([json.loads((Path(out_dir) / f"{name}.{r}.json").read_text())
+              for r in range(n)], s) for (name, n), s in zip(tasks, secs)]
 
 
 def mesh_step_metrics(step):
@@ -4079,24 +4150,25 @@ def gathered_vs(label, grads, want, reach):
     n_past, worst, n, by_leaf = 0, 0.0, 0, []
     paths = list(ckpt_paths(grads))
     for i, g in enumerate(tfm.tree_leaves(grads)):
-        full = g.full_tensor() if shlib.is_dtensor(g) else g
+        full = shlib.full(g)
         if want is None:
             del full
             continue
-        a, b = full.cpu().reshape(-1), want[i].reshape(-1)
-        del full
-        scale = max(float(b.abs().max()), 1e-30)
-        past, err = 0, 0.0
-        for j in range(0, a.numel(), 1 << 26):   # host temporaries bounded
-            x, y = a[j:j + (1 << 26)], b[j:j + (1 << 26)]
+        a, b = full.reshape(-1), want[i].reshape(-1)
+        past, err, scale, x = 0, 0.0, 1e-30, None
+        y = d = x
+        for j in range(0, a.numel(), 1 << 26):   # on the card, in chunks
+            x, y = a[j:j + (1 << 26)], b[j:j + (1 << 26)].to(a.device)
             d = (x - y).abs()
             past += int((d > GRAD_ATOL + GRAD_RTOL * y.abs()
                          + 2 * reach[i]).sum())
             err = max(err, float(d.max()))
+            scale = max(scale, float(y.abs().max()))
+        n += a.numel()
+        del full, a, x, y, d
         n_past += past
         worst = max(worst, err / scale)
         by_leaf.append((past, err / scale, paths[i], err, reach[i], scale))
-        n += a.numel()
     if want is None:
         return {}
     top = sorted(by_leaf, reverse=True)[:3]
@@ -4250,7 +4322,7 @@ def mesh_fused_calls(record):
                 else Replicate() for p in x.placements]).to_local()
         key = (xl.numel() // xl.shape[-1], xl.shape[-1])
         if key not in record:
-            c = coeffs.full_tensor() if shlib.is_dtensor(coeffs) else coeffs
+            c = shlib.full(coeffs)
             record[key] = (xl.detach().reshape(key).clone(),
                            c.detach().clone(), asp)
         return fn(x, coeffs, asp)
@@ -4295,7 +4367,7 @@ def mamba16_task(dev, out_dir):
     card = torch.cuda.get_device_properties(dev).total_memory / 1e9
     per_layer = calib[n1] - calib[n0]
     fits = int((MEM_SHARE * card - calib[n0]) // max(per_layer, 1e-9)) + n0
-    cut = min(full.n_layers, fits)
+    cut = min(full.n_layers, fits, mt["layers"])
     cfg = dataclasses.replace(full, n_layers=cut)
     res.update(calibration_gb=calib, layers=cut, card_gb=card,
                predicted_gb=calib[n0] + per_layer * (cut - n0))
@@ -4469,8 +4541,184 @@ def mixtral16_task(dev, out_dir):
     return res
 
 
+def serve17_argv(arch, backend, sv):
+    """The launcher's command line of a phase-17 run (without the mesh
+    flags), and the trace it serves."""
+    argv = ["--arch", arch, "--requests", str(sv["requests"]), "--slots",
+            str(sv["slots"]), "--page-size", str(sv["page_size"]),
+            "--prompt-len", str(sv["prompt_len"]), "--common-prefix",
+            str(sv["common_prefix"]), "--new-tokens", str(sv["new_tokens"]),
+            "--stagger", "1", "--check", "--metrics-out", os.devnull]
+    if backend:
+        argv += ["--kan-backend", backend]
+    return argv
+
+
+def serve17_trace(vocab, sv):
+    """The launcher's ``synth_trace`` for ``sv`` (seed 0)."""
+    return synth_trace(vocab, sv["requests"], max_prompt=sv["prompt_len"],
+                       min_prompt=max(2, sv["prompt_len"] // 2),
+                       max_new=sv["new_tokens"],
+                       min_new=max(2, sv["new_tokens"] // 2), stagger=1,
+                       common_prefix=sv["common_prefix"], seed=0)
+
+
+def serve17_task(dev, out_dir, arch, backend, sv, capture, states=None):
+    """One rank of ``launch.serve --mesh-model``: its tokens, report and
+    launches, the kernel calls it made (decode ticks and chunks counted
+    through ``decode``), its peak memory; then, on the run's engine, a
+    profiled window of ticks (device busy ms and idle share) and one tick's
+    collectives through ``analysis``. ``capture(args)`` returns a key for
+    a kernel call whose local inputs rank 0 keeps for its plain check.
+    With ``states`` (a dict), each request's carried SSD state after its
+    last prefill chunk, gathered whole, goes into it by request id."""
+    runs, calls, kept = [], {"decode": 0, "chunks": 0}, {}
+    run, saved = Engine.run, (decode.decode_step, decode.prefill_chunk)
+    init, made = Engine.__init__, []
+
+    def spy_init(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    def spy_run(self, *a, **k):
+        comps = run(self, *a, **k)
+        runs.append((self, comps))
+        return comps
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            out = fn(*a, **k)
+            if states is not None and name == "chunks" and k["last"]:
+                # (params, cfg, cache, tokens, start, slot, ...): every
+                # rank gathers (a collective), rank 0 keeps
+                eng = next(e for e in made if e.cache is a[2])
+                state = shlib.full(out[1][0]["l0"]["state"])[:, a[5]]
+                states[eng.slot_req[a[5]].rid] = state.clone()
+            return out
+        return wrapped
+    kernel_fn, kernel_name = capture["fn"], capture["name"]
+    original = getattr(ops, kernel_name)
+
+    def spy_kernel(*a, **k):
+        key = kernel_fn(a, k)
+        if key is not None and key not in kept:
+            kept[key] = tuple(t.clone() if isinstance(t, torch.Tensor)
+                              else t for t in a) + (k,)
+        return original(*a, **k)
+    Engine.run, Engine.__init__ = spy_run, spy_init
+    decode.decode_step = counted("decode", saved[0])
+    decode.prefill_chunk = counted("chunks", saved[1])
+    setattr(ops, kernel_name, spy_kernel)
+    argv = serve17_argv(arch, backend, sv) + [
+        "--mesh-model", str(sv["mesh"][1])]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = serve_launch.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        Engine.run, Engine.__init__ = run, init
+        decode.decode_step, decode.prefill_chunk = saved
+        setattr(ops, kernel_name, original)
+    eng, comps = runs[-1]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the same engine, every slot given a one-page prompt (the trace's
+    # first 64 tokens) and 16 new tokens: a profiled window of decode
+    # ticks, then one decode tick's collectives
+    head = serve17_trace(eng.cfg.vocab, sv)[0].tokens[:eng.page_size]
+    for i in range(eng.n_slots):
+        eng.submit(Request(rid=f"profile{i}", tokens=head, max_new=16,
+                           arrival=eng.tick_no))
+    prof = tick_window(eng.step, *SERVE17_PROFILE)
+    cb = CollectiveBytes()
+    with cb:
+        eng.step()
+    torch.cuda.synchronize()
+    return dict(tokens={c.rid: [int(t) for t in c.tokens] for c in comps},
+                report={k: rep[k] for k in (
+                    "completed", "tokens_per_s", "ttft_s", "tpot_s",
+                    "slot_reuse", "evicted_eos", "prefill_chunks", "ticks",
+                    "wall_s")},
+                run_s=wall, launches=launches, calls=calls, peak_gb=peak,
+                profile=prof, tick_collective_calls=cb.calls,
+                tick_collective_input_bytes=cb.bytes,
+                tick_traffic=cb.traffic(), kept=kept if meshlib.rank() == 0
+                else {})
+
+
+def kan17_task(dev, out_dir):
+    """Phase 17a on one rank of 2x2; rank 0 holds ``kan_fused`` against its
+    plain version at its tick and prefill-chunk inputs."""
+    sv = SERVE17_KAN
+    tick_rows = sv["slots"] // sv["mesh"][0]
+
+    def key(a, k):
+        x = a[0]
+        rows = x.numel() // x.shape[-1]
+        tick = x.dim() == 3 and x.shape[1] == 1
+        if (tick and rows == tick_rows) or (not tick and rows ==
+                                            sv["page_size"]):
+            return (rows, x.shape[-1])
+        return None
+    res = serve17_task(dev, out_dir, "kan_llm", "fused", sv,
+                       dict(name="kan_spline_fused_deployed", fn=key))
+    rows = []
+    timer = Timer(dev)
+    asp_up, asp_down = kan_llm.CONFIG.model.kan_spec.asp
+    for (n, i), (x, codes, scale, asp, kw) in sorted(res.pop("kept").items()):
+        layer = types.SimpleNamespace(codes=codes, scale=scale,
+                                      hemi=kw.get("hemi"))
+        what = "tick" if n == tick_rows else "chunk"
+        rows.append(check_kan_fused(
+            timer, f"kan_llm 2x2 rank {what} {'up' if i == 256 else 'down'}"
+            f" [{n}, {i}]", x.reshape(-1, i), layer, asp))
+        rows[-1]["on_path"] = False
+    res["rows"] = rows
+    return res
+
+
+def mamba17_task(dev, out_dir):
+    """Phase 17b on one rank of 1x2, serving ``CONFIG`` in f32; rank 0
+    holds ``ssd_scan`` against its plain versions at a carried-state chunk
+    of its heads, and saves each request's carried state (all layers) to
+    ``out_dir/mamba17.states.pt``."""
+    sv = SERVE17_MAMBA
+
+    def key(a, k):
+        if isinstance(a[0], torch.Tensor) and not shlib.is_dtensor(a[0]) \
+                and k.get("init_state") is not None:
+            return "chunk"      # the first carried-state chunk
+        return None
+    full, states = mamba2_1p3b.CONFIG, {}
+    mamba2_1p3b.CONFIG = dataclasses.replace(full, model=dataclasses.replace(
+        full.model, dtype=sv["dtype"]))       # what the launcher reads
+    try:
+        res = serve17_task(dev, out_dir, "mamba2_1p3b", None, sv,
+                           dict(name="ssd_state", fn=key), states)
+    finally:
+        mamba2_1p3b.CONFIG = full
+    if meshlib.rank() == 0:
+        torch.save({str(k): v.cpu() for k, v in states.items()},
+                   Path(out_dir) / "mamba17.states.pt")
+    rows = []
+    timer = Timer(dev)
+    for x, dt, a, b_mat, c_mat, d_skip, kw in res.pop("kept").values():
+        s = dict(x=x, dt=dt, a=a, B=b_mat, C=c_mat, d_skip=d_skip)
+        rows.append(check_ssd_scan(
+            timer, f"mamba2 1x2 rank chunk {list(x.shape)}", s, kw["chunk"],
+            init=kw["init_state"]))
+    res["rows"] = rows
+    return res
+
+
 RANK_TASKS = {"kan16": kan16_task, "mamba16": mamba16_task,
-              "mixtral16": mixtral16_task}
+              "mixtral16": mixtral16_task, "kan17": kan17_task,
+              "mamba17": mamba17_task}
 
 
 def rank_main() -> int:
@@ -4488,6 +4736,26 @@ def rank_main() -> int:
         json.dumps(res, default=float))
     meshlib.destroy()
     return 0
+
+
+def kan16_launches(argv, kt, tmp):
+    """16a's launcher on 2x2 (saving at ``resume_at``), then a second launch
+    resuming from that checkpoint on 1x2; returns the second's standard
+    output and the two runs' seconds."""
+    mesh_args = ["-m", "repro_torch.launch.train", *argv, "--host-mesh",
+                 "--model-parallel", "2", "--dist-backend", MESH_BACKEND]
+    ck, ck2 = tmp / "ck", tmp / "ck2"
+    _, s_a = torchrun(4, mesh_args + ["--ckpt-dir", str(ck), "--save-every",
+                                      str(kt["resume_at"]), "--losses-out",
+                                      str(tmp / "a")], tmp / "launch_2x2.log")
+    name = f"step_{kt['resume_at']:08d}"
+    ck2.mkdir()
+    subprocess.run(["cp", "-r", str(ck / name), str(ck2 / name)], check=True)
+    s_out, s_b = torchrun(2, mesh_args + ["--ckpt-dir", str(ck2),
+                                          "--verify-restore", "--losses-out",
+                                          str(tmp / "b")],
+                          tmp / "launch_1x2.log")
+    return s_out, s_a, s_b
 
 
 def mesh_phase(dev):
@@ -4511,39 +4779,27 @@ def mesh_phase(dev):
         torch.save((KAN_REF["want"], KAN_REF["reach"]),
                    tmp / "kan16_ref.pt")
         torch.cuda.empty_cache()
-        # 16a/16d on 2x2: gradients, timing, psum
-        t0 = time.perf_counter()
-        r_kan = rank_task("kan16", 4, tmp)
-        out["kan16_s"] = time.perf_counter() - t0
-        # 16a: the launcher on 2x2, then resumed on 1x2 from step 10
-        mesh_args = ["-m", "repro_torch.launch.train", *argv, "--host-mesh",
-                     "--model-parallel", "2", "--dist-backend", MESH_BACKEND]
-        ck, ck2 = tmp / "ck", tmp / "ck2"
-        _, s_a = torchrun(4, mesh_args + ["--ckpt-dir", str(ck),
-                                          "--save-every",
-                                          str(kt["resume_at"]),
-                                          "--losses-out", str(tmp / "a")],
-                          tmp / "launch_2x2.log")
-        name = f"step_{kt['resume_at']:08d}"
-        ck2.mkdir()
-        subprocess.run(["cp", "-r", str(ck / name), str(ck2 / name)],
-                       check=True)
-        s_out, s_b = torchrun(2, mesh_args + ["--ckpt-dir", str(ck2),
-                                              "--verify-restore",
-                                              "--losses-out",
-                                              str(tmp / "b")],
-                              tmp / "launch_1x2.log")
+        # 16a/16d on 2x2 (gradients, timing, psum) beside 16b on 1x2: the
+        # ranks are host-bound, and side by side the two take about the
+        # longer one's time
+        (r_kan, out["kan16_s"]), (r_mamba, out["mamba16_s"]) = rank_tasks(
+            [("kan16", 4), ("mamba16", 2)], tmp)
+        # 16a: the launcher on 2x2, then resumed on 1x2 from its checkpoint,
+        # beside 16c on 1x2 (stopped if the launcher fails)
+        mix = torchrun_start(2, [__file__, "--rank-task", "mixtral16",
+                                 "--out", str(tmp)], tmp / "mixtral16.log")
+        try:
+            s_out, s_a, s_b = kan16_launches(argv, kt, tmp)
+        except BaseException:
+            torchrun_stop([mix])
+            raise
+        out["mixtral16_s"] = torchrun_all([mix], 1200)[0][1]
+        r_mix = [json.loads((tmp / f"mixtral16.{r}.json").read_text())
+                 for r in range(2)]
         runs = {}
         for tag, n in (("a", 4), ("b", 2)):
             runs[tag] = [json.loads(Path(str(tmp / tag) + (
                 f".rank{r}" if r else "")).read_text()) for r in range(n)]
-        # 16b, 16c
-        t0 = time.perf_counter()
-        r_mamba = rank_task("mamba16", 2, tmp)
-        out["mamba16_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        r_mix = rank_task("mixtral16", 2, tmp, timeout=1200)
-        out["mixtral16_s"] = time.perf_counter() - t0
     # 16a checks: every step's loss, the resume, the restored leaves, the
     # launches on every rank
     per_step = kan_calls_per_step(cfg)
@@ -4626,6 +4882,185 @@ def print_mesh(m):
           f"{m['mamba2']['grads']}; losses {m['mamba2']['losses']}")
     print(f"phase 16c mixtral-8x7b 1x2: {m['mixtral']}")
     print(f"phase 16d psum_int8_error_feedback: {m['psum']}")
+
+
+def serve_mesh_phase(dev):
+    """Phase 17. Returns the metrics, the kernel rows (kan_fused at a
+    2x2 rank's tick and chunk, ssd_scan at a 1x2 rank's chunk) and the
+    launches summed over the ranks."""
+    out, rows, launches = {}, {}, {}
+    # 17c: the dry run on torch's fake group, in a process of its own (the
+    # fake group is the process's); it needs no card, so it runs on the
+    # host while 17a and 17b serve, and is stopped if they fail
+    script = ("import json, sys, time\n"
+              "from repro_torch.launch import dryrun\n"
+              "t0 = time.perf_counter()\n"
+              "cells = json.loads(sys.argv[1])\n"
+              "recs = [dryrun.run_cell(a, s, smoke=sm, mesh_spec=m, "
+              "save=False) for a, s, sm, m in cells]\n"
+              "print(json.dumps([time.perf_counter() - t0, recs]))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC), os.environ.get("PYTHONPATH", "")]))
+    dry = subprocess.Popen([sys.executable, "-c", script,
+                            json.dumps(DRYRUN17)], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        serve_mesh_runs(dev, out, rows, launches)
+    except BaseException:
+        dry.kill()
+        dry.communicate()
+        raise
+    stdout, stderr = dry.communicate(timeout=600)
+    check(dry.returncode == 0, f"phase 17c dry run: exit "
+          f"{dry.returncode}: {stderr[-2000:]}")
+    dry_s, recs = json.loads(stdout.strip().splitlines()[-1])
+    for rec in recs:
+        check(rec.get("ok"), f"phase 17c dry run {rec['arch']} x "
+              f"{rec['shape']} on {rec['mesh']}: {rec.get('error')}")
+    out["17c"] = dict(s=dry_s, torch=torch.__version__, cells=recs)
+    return out, rows, launches
+
+
+def serve_mesh_runs(dev, out, rows, launches):
+    """Phase 17a and 17b, their ranks side by side (host-bound, so the two
+    take about the longer one's time): their metrics into ``out``, the
+    kernel rows into ``rows`` and the launches summed over the ranks into
+    ``launches``."""
+    fams = (("17a", "kan17", "kan_llm", "fused", SERVE17_KAN, "kan_fused"),
+            ("17b", "mamba17", "mamba2_1p3b", None, SERVE17_MAMBA,
+             "ssd_scan"))
+    with tempfile.TemporaryDirectory() as tmp:
+        done = rank_tasks([(f[1], f[4]["mesh"][0] * f[4]["mesh"][1])
+                           for f in fams], tmp, timeout=600)
+        path = Path(tmp) / "mamba17.states.pt"
+        saved = torch.load(path) if path.exists() else None
+    for (tag, task, arch, backend, sv, kname), (res, wall) in zip(fams,
+                                                                 done):
+        states = saved if task == "mamba17" else None
+        toks = res[0]["tokens"]
+        for r, rk in enumerate(res):
+            check(rk["tokens"] == toks, f"phase {tag}: rank {r}'s tokens "
+                  "differ from rank 0's")
+            per_call = (2 * kan_llm.CONFIG.model.n_layers if kname ==
+                        "kan_fused" else None)
+            got = rk["launches"][kname]
+            if per_call is not None:
+                want = per_call * (rk["calls"]["decode"]
+                                   + rk["calls"]["chunks"])
+                check(got == want, f"phase {tag} rank {r}: kan_fused "
+                      f"launched {got} times in {rk['calls']}, not {want}")
+            else:
+                # every chunk runs the scan in each of the 48 layers
+                want = mamba2_1p3b.CONFIG.model.n_layers * rk["calls"][
+                    "chunks"]
+                check(got == want, f"phase {tag} rank {r}: ssd_scan "
+                      f"launched {got} times in {rk['calls']} chunks, not "
+                      f"{want}")
+            check(got > 0, f"phase {tag} rank {r}: {kname} not launched")
+        # rank 0 kept a kernel input at each shape it holds to the plain
+        # version: kan_fused's tick and chunk, up and down; one ssd_scan chunk
+        want_rows = 4 if kname == "kan_fused" else 1
+        check(len(res[0]["rows"]) == want_rows, f"phase {tag}: rank 0 kept "
+              f"{len(res[0]['rows'])} {kname} inputs, not {want_rows}")
+        # the single card's solo runs of the same requests (13a's and 13b's
+        # rule): equal up to the first near tie, at every clear step after,
+        # at F32_PATH_BAR (both families are served in f32); 13b's check of
+        # each request's carried state against its solo prefill, within
+        # twice the bf16 reach (the bf16 prefill's distance from it)
+        cfg = mamba2_1p3b.CONFIG.model if backend is None else \
+            dataclasses.replace(kan_llm.CONFIG.model, kan_backend=backend)
+        cfg16 = cfg
+        cfg = dataclasses.replace(cfg, dtype=sv.get("dtype", cfg.dtype))
+        check(cfg.dtype == torch.float32, f"phase {tag}: served in "
+              f"{cfg.dtype}, not f32")
+        params = Engine(tfm.init_model(0, cfg), cfg, n_slots=1,
+                        max_len=sv["common_prefix"] + sv["prompt_len"]
+                        + sv["new_tokens"], device=dev).params
+        compared, worst_state = 0, None
+        check(states is not None or kname != "ssd_scan", f"phase {tag}: "
+              "the carried states were not saved")
+        reqs = serve17_trace(cfg.vocab, sv)
+        check(sorted(int(k) for k in toks) == [r.rid for r in reqs],
+              f"phase {tag}: completions {sorted(toks)}")
+        with quantisation_poisoned():
+            for r in reqs:
+                got = toks[str(r.rid)]
+                prompt = torch.from_numpy(r.tokens.astype(np.int64)).to(dev)
+                argmax, leads, _, cache = solo_forced(params, cfg, prompt,
+                                                      got)
+                compared += solo_agrees(f"phase {tag}", r.rid, got, argmax,
+                                        leads, F32_PATH_BAR)
+                if states is None:
+                    continue
+                check(str(r.rid) in states, f"phase {tag}: request {r.rid}'s "
+                      "carried state was not captured")
+                _, cache16 = decode.prefill(
+                    params, cfg16, {"tokens": prompt[None]}, len(prompt) + 1,
+                    last_only=True)
+                solo = cache[0]["l0"]["state"][:, 0]
+                reach = float((cache16[0]["l0"]["state"][:, 0].float()
+                               - solo).abs().max())
+                err = float((states[str(r.rid)].to(dev) - solo).abs().max())
+                check(err <= 2 * reach, f"phase {tag}: request {r.rid}'s "
+                      f"carried state differs from its solo prefill by "
+                      f"{err:.3g}, past twice the bf16 reach {reach:.3g}")
+                worst_state = max(worst_state or 0.0, err / reach)
+                del cache, cache16
+        check(compared > 0, f"phase {tag}: no clear step was compared with "
+              "the single card")
+        del params
+        torch.cuda.empty_cache()
+        rows[kname] = res[0]["rows"]
+        launches[kname] = sum(rk["launches"][kname] for rk in res)
+        out[tag] = dict(
+            arch=arch, backend=backend, mesh="x".join(map(str, sv["mesh"])),
+            requests=sv["requests"], wall_s=wall,
+            solo_clear_steps_compared=compared,
+            state_err_over_bf16_reach=worst_state,
+            per_rank=[{k: v for k, v in rk.items()
+                       if k not in ("tokens", "rows")} for rk in res])
+
+
+def print_serve_mesh(m, smi):
+    """Phase 17's lines, each number beside the card's name and power
+    limit."""
+    for tag in ("17a", "17b"):
+        r = m[tag]
+        for i, rk in enumerate(r["per_rank"]):
+            rep, prof = rk["report"], rk["profile"]
+            busy = (f"{prof['device_ms_per_tick']:.2f} ms of "
+                    f"{prof['wall_ms_per_tick']:.1f} (idle "
+                    f"{prof['idle_share']:.3f})" if prof else "not measured")
+            print(f"phase {tag} {r['arch']} {r['backend'] or ''} "
+                  f"{r['mesh']} rank {i} [{smi}]: {rep['tokens_per_s']} "
+                  f"tokens/s, TTFT p50 {rep['ttft_s'].get('p50')} s, TPOT "
+                  f"p50 {rep['tpot_s'].get('p50')} s; a profiled tick's "
+                  f"device {busy}; peak {rk['peak_gb']:.2f} GB; one tick's "
+                  f"collectives {rk['tick_collective_calls']}, input bytes "
+                  f"{rk['tick_collective_input_bytes']}, ring bytes moved "
+                  f"{rk['tick_traffic']['total']:.0f}; launches "
+                  f"{rk['launches']} in {rk['calls']}")
+        state = r["state_err_over_bf16_reach"]
+        print(f"phase {tag} [{smi}]: {r['requests']} requests in "
+              f"{r['wall_s']:.1f} s (torchrun included, 17a and 17b side by "
+              f"side); tokens equal on "
+              f"every rank and to the single card's f32 solo runs at "
+              f"{r['solo_clear_steps_compared']} clear steps"
+              + ("" if state is None else f"; carried state / bf16 reach <= "
+                 f"{state:.3g}"))
+    for rec in m["17c"]["cells"]:
+        mem = rec["memory"]
+        print(f"phase 17c dry run (torch {m['17c']['torch']}) {rec['arch']} "
+              f"x {rec['shape']} on {rec['mesh']} ({rec['devices']} fake "
+              f"ranks): ok; rank 0 holds params {mem['param_bytes']} B, "
+              f"cache {mem['cache_bytes']} B, batch {mem['batch_bytes']} B, "
+              f"peak {mem['peak_bytes']} B (with the step's live op "
+              f"outputs); flops "
+              f"{rec['flops']:.4g}, bytes accessed "
+              f"{rec['bytes_accessed']:.4g}; collectives "
+              f"{rec['collective_calls']}, ring bytes moved "
+              f"{rec['collective_traffic']['total']:.0f}")
 
 
 def main() -> int:
@@ -5066,6 +5501,32 @@ def main() -> int:
               f"{r['bound_by']}, 3xTF32 bound {r['bound_tf32_ms']:.4f})")
     print("phase 16: " + json.dumps(m16, default=float))
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # 17. serving under a mesh of ranks on the card (kan_llm fused 2x2,
+    # mamba2-1.3b 1x2, every rank's launches counted), then the dry run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m17, rows17, launches17 = serve_mesh_phase(dev)
+    for k, krows in rows17.items():
+        rows[k].extend(krows)
+        launches[k] += launches17[k]
+    print_serve_mesh(m17, smi)
+    for r in rows17["kan_fused"]:
+        print(f"kernel kan_fused {r['shape']} [{smi}]: max|err| "
+              f"{r['max_abs_err']:.3g}, err/sum|terms| "
+              f"{r['max_err_over_sum_abs_terms']:.3g}, {r['ms']:.4f} ms, "
+              f"device {r['device_ms']:.4f}, host {r['host_ms']:.4f} (plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    for r in rows17["ssd_scan"]:
+        print(f"kernel ssd_scan {r['shape']} [{smi}]: max|err| vs plain y "
+              f"{r['y_vs_plain_max_abs_err']:.3g}; err/tolerance vs plain y "
+              f"{r['y_vs_plain_err_over_tol']:.3g} state "
+              f"{r['state_vs_plain_err_over_tol']:.3g}; {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}, 3xTF32 bound {r['bound_tf32_ms']:.4f})")
+    print("phase 17: " + json.dumps(m17, default=float))
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     # result lines
     kernels = []

@@ -46,6 +46,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import quant, splines
 from repro_torch.core.quant import ASPConfig
+from repro_torch.dist.sharding import as_dtensors, placements_of
 
 
 # ---------------------------------------------------------------------------
@@ -562,7 +563,12 @@ def apply(deployed: DeployedKAN, x: torch.Tensor, *,
           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Phase 2 — run-time evaluation against the frozen artifact, for every
     backend. Performs no coefficient quantisation and builds no LUTs.
-    ``generator`` draws the cim and cim_tiled backends' readout noise."""
+    ``generator`` draws the cim and cim_tiled backends' readout noise.
+    A DTensor ``x`` runs on each rank's shard against the whole artifact
+    (``_apply_on_shards``)."""
+    mesh, (xd,) = as_dtensors(x)
+    if mesh is not None:
+        return _apply_on_shards(mesh, deployed, xd, generator)
     spec = deployed.spec
     backend = get_backend(spec.backend)
     for i, layer in enumerate(deployed.layers):
@@ -573,6 +579,21 @@ def apply(deployed: DeployedKAN, x: torch.Tensor, *,
             y = y + base_branch(xb, layer.w_base, spec.base_activation)
         x = y
     return x
+
+
+def _apply_on_shards(mesh, deployed: DeployedKAN, x, generator):
+    """``apply`` under ``local_map``: per mesh dim x's rows stay split if
+    they are, anything else (a split or partial feature dim) is made whole;
+    every rank holds the whole artifact (as the reference replicates it
+    under a mesh), so each runs the backend, the ``fused`` kernel among
+    them, on its own rows."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = [p if p.is_shard() and p.dim < x.ndim - 1 else Replicate()
+          for p in placements_of(x)]
+    return local_map(lambda xl: apply(deployed, xl, generator=generator),
+                     out_placements=pl, in_placements=(pl,),
+                     device_mesh=mesh, redistribute_inputs=True)(x)
 
 
 def train_apply(params, x: torch.Tensor, spec: KANSpec, *, qat: bool = False

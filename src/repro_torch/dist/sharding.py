@@ -98,11 +98,18 @@ def override_rules(**overrides):
 
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Make ``mesh`` (a ``DeviceMesh`` with named dims) current, the
-    counterpart of the reference's ``with mesh:``. Nests."""
+    """Make ``mesh`` (a ``DeviceMesh`` with named dims, or None for no
+    mesh) current, the counterpart of the reference's ``with mesh:``.
+    Nests."""
     from torch.distributed.tensor.experimental import implicit_replication
     prev = _local.mesh
     _local.mesh = mesh
+    if mesh is None:        # no mesh: shard() is the identity inside
+        try:
+            yield None
+        finally:
+            _local.mesh = prev
+        return
     try:
         # a plain tensor met by a DTensor (positions, masks, constants made
         # inside the model) counts as replicated on the mesh
@@ -333,6 +340,21 @@ def distribute_tree(tree, mesh, spec_tree):
         for leaf, names in pairs]))
 
 
+def replicate_tree(tree, mesh):
+    """Every plain tensor leaf of nested dicts and lists as a DTensor
+    replicated on ``mesh``; DTensors and any other node (a deployed KAN
+    artifact, which a rank holds whole and plain) stay as they are."""
+    if isinstance(tree, Mapping):
+        return {k: replicate_tree(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [replicate_tree(v, mesh) for v in tree]
+    if not isinstance(tree, torch.Tensor) or is_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(tree, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def shardings_of(tree):
     """The ``NamedSharding`` of every DTensor leaf of ``tree`` (nested
     dicts, lists and tuples; None for any other leaf): the target of an
@@ -368,3 +390,89 @@ def local_to_dtensor(full: torch.Tensor, mesh, placements):
     loc = local_shard(full, mesh, placements).contiguous()
     return DTensor.from_local(loc, mesh, placements, run_check=False,
                               shape=full.shape, stride=full.stride())
+
+
+def full(x):
+    """``x`` whole on every rank: a DTensor gathered to a plain tensor,
+    anything else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _local_ranges(x) -> Dict[int, Tuple[int, int]]:
+    """dim -> (first index, length) of this rank's shard of the DTensor
+    ``x`` along every sharded dim (nested splits as ``local_shard``)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    out: Dict[int, Tuple[int, int]] = {}
+    for i, p in enumerate(placements_of(x)):
+        if p.is_shard():
+            lo, n = out.get(p.dim, (0, x.shape[p.dim]))
+            n //= mesh.size(i)
+            out[p.dim] = (lo + coord[i] * n, n)
+    return out
+
+
+def setitem_(dst, index, src) -> None:
+    """``dst[index] = src`` in place, also for a DTensor ``dst``, whose
+    local shard each rank writes itself (DTensor's own in-place indexing
+    cannot move ``dst``). ``index`` is a tuple of per-dim selectors over
+    ``dst``'s leading dims: ints, step-1 slices, and long tensors
+    (consecutive, on dims no mesh dim splits: the page tables). ``src``
+    has the indexed result's full shape; it is brought to the placements
+    of ``dst``'s shard (replicated along a split dim that an int or a
+    partial slice selects, so the rank that holds the row writes it)."""
+    index = index if isinstance(index, tuple) else (index,)
+    if not is_dtensor(dst):          # one write, as without a mesh
+        if index:
+            dst[index] = src.to(dst.dtype)
+        else:
+            dst.copy_(src)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    sel = list(index) + [slice(None)] * (dst.ndim - len(index))
+    src_dim: Dict[int, int] = {}
+    s, adv = 0, False
+    for d, ix in enumerate(sel):
+        if isinstance(ix, torch.Tensor):
+            if not adv:
+                s += ix.ndim
+                adv = True
+        elif not isinstance(ix, int):
+            src_dim[d] = s
+            s += 1
+    narrow = []                      # (src dim, start, length)
+    whole = set()                    # split dims written whole
+    for d, (lo, n) in _local_ranges(dst).items():
+        ix = sel[d]
+        if isinstance(ix, torch.Tensor):
+            raise ValueError(f"setitem_: a tensor index on dim {d}, which "
+                             "the mesh splits")
+        if isinstance(ix, int):
+            ix = ix % dst.shape[d]
+            if not lo <= ix < lo + n:
+                return               # another rank holds the row
+            sel[d] = ix - lo
+            continue
+        start, stop, step = ix.indices(dst.shape[d])
+        if step != 1:
+            raise ValueError("setitem_: slices must have step 1")
+        if (start, stop) == (0, dst.shape[d]):
+            whole.add(d)             # src is split alike
+            continue
+        a, b = max(start, lo), min(stop, lo + n)
+        if a >= b:
+            return
+        sel[d] = slice(a - lo, b - lo)
+        narrow.append((src_dim[d], a - start, b - a))
+    mesh = dst.device_mesh
+    want = []
+    for p in placements_of(dst):
+        want.append(Shard(src_dim[p.dim]) if p.is_shard() and p.dim in whole
+                    else Replicate())
+    if is_dtensor(src):
+        loc = src.redistribute(mesh, want).to_local()
+    else:
+        loc = local_shard(src, mesh, want)
+    for d, a, n in narrow:
+        loc = loc.narrow(d, a, n)
+    dst.to_local()[tuple(sel)] = loc.to(dst.dtype)

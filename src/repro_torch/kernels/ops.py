@@ -2,9 +2,11 @@
 ``repro.kernels.ops``).
 
 Each wrapper checks device, dtype, shape and contiguity, flattens leading
-batch dims, and then takes exactly one of two paths: the plain PyTorch
-version for a tensor on the CPU, the CUDA kernel for a tensor on the card.
-There is no other branch and no fallback. The kernels count their launches;
+batch dims, and then takes exactly one path by the input's device: the
+plain PyTorch version on the CPU, the CUDA kernel on the card, and on the
+``meta`` device (the dry run) the kernel's shape-only stand-in
+(``kernels.shape_ops``, registered for meta tensors alone). There is no
+other branch and no fallback. The kernels count their launches;
 ``launch_counts``/``reset_launch_counts`` read and clear those counts.
 
 ``kan_spline_fused`` is the QAT autograd Function around the fused kernel
@@ -56,12 +58,19 @@ def reset_launch_counts() -> None:
 
 
 def _same_device(what: str, ref_t: torch.Tensor, **tensors) -> None:
-    if ref_t.device.type not in ("cpu", "cuda"):
+    if ref_t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {ref_t.device}")
     for name, t in tensors.items():
         if t.device != ref_t.device:
             raise ValueError(f"{what}: {name} is on {t.device}, the input "
                              f"on {ref_t.device}")
+
+
+def _shape_ops():
+    """The kernels' shape-only stand-ins for meta tensors (registered on
+    first use)."""
+    from repro_torch.kernels import shape_ops
+    return shape_ops
 
 
 def kan_spline_fused_deployed(x: torch.Tensor, codes: torch.Tensor,
@@ -97,6 +106,8 @@ def kan_spline_fused_deployed(x: torch.Tensor, codes: torch.Tensor,
         scale = scale.reshape(o).to(torch.float32).contiguous()
     if x.device.type == "cpu":
         y = ref.kan_spline_ref(xf, codes, scale, asp, hemi)
+    elif x.device.type == "meta":
+        y = _shape_ops().kan_fused_shape(xf, codes)
     else:
         y = _kf.kan_fused(xf, codes, scale, hemi.to(torch.float32), asp=asp)
     return y if flat_f32 else y.reshape(lead + (o,)).to(x.dtype)
@@ -203,6 +214,8 @@ def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,
     att = row_atten.to(torch.float32).contiguous()
     if v.device.type == "cpu":
         y = ref.cim_mac_ref(vf, w_codes, att, array_size, adc_bits, in_scale)
+    elif v.device.type == "meta":
+        y = _shape_ops().cim_mac_shape(vf, w_codes, False)
     else:
         # the ADC step as the reference computes it: a Python float that
         # the kernel receives rounded to f32
@@ -244,6 +257,8 @@ def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
     if v.device.type == "cpu":
         y = ref.cim_mac_tiled_ref(vf, w_codes, g, att, array_size, adc_bits,
                                   in_scale)
+    elif v.device.type == "meta":
+        y = _shape_ops().cim_mac_shape(vf, w_codes, True)
     else:
         lsb = float(array_size) * in_scale / float(2 ** adc_bits - 1)
         y = _cim.cim_mac_tiled(vf, w_codes, g, att, array_size=array_size,
@@ -322,7 +337,10 @@ def _ssd_state_mesh(mesh, x, dt, a, b_mat, c_mat, d_skip, init_state, *,
 
 
 def _ssd_scan_f32(x, dt, a, b_mat, c_mat, d_skip, init_state, chunk):
-    """The kernel on f32 copies (or the tensors themselves) of its inputs."""
+    """The kernel on f32 copies (or the tensors themselves) of its inputs;
+    its shape-only stand-in on meta tensors."""
+    if x.device.type == "meta":
+        return _shape_ops().ssd_scan_shape(x, b_mat, chunk)
     f32 = torch.float32
     return _ssd.ssd_scan(
         x.to(f32), dt.to(f32), a.to(f32), b_mat.to(f32), c_mat.to(f32),

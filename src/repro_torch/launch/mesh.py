@@ -5,13 +5,14 @@ Multi-pod   : (pod=2, data=16, model=16)     = 512 ranks
 Host mesh   : (data=world // model, model)   = whatever the world is
 
 Ranks are processes. ``init_process_group`` reads the rendezvous from the
-environment: ``RANK`` and ``WORLD_SIZE`` always, then either
+environment: ``RANK`` and ``WORLD_SIZE`` (without them the process is a
+world of one), then either
 ``REPRO_TORCH_STORE`` (a ``FileStore`` path; tests, where several groups
 run at once and no fixed port is free) or ``MASTER_ADDR``/``MASTER_PORT``
-(what ``torchrun`` sets). The backend is whatever the caller names: NCCL
-with one rank per card, gloo for ranks on the CPU or for several ranks
-sharing one card (NCCL refuses two ranks on one GPU). Nothing here picks
-a backend or a device on its own.
+(what ``torchrun`` sets). The backend is whatever the caller names;
+``default_backend`` works it out: NCCL with one rank per card, gloo for
+ranks on the CPU or for several ranks sharing one card (NCCL refuses two
+ranks on one GPU). Nothing here picks a device on its own.
 
 Gloo carries CUDA tensors by copying them through host memory (inside
 torch's gloo backend). With torch 2.11 (cu128) its functional
@@ -37,9 +38,13 @@ STORE_ENV = "REPRO_TORCH_STORE"
 
 
 def default_backend(device: torch.device) -> str:
-    """NCCL for ranks on the card, gloo for ranks on the CPU (a launcher's
-    ``--dist-backend`` default; ranks sharing one card pass gloo)."""
-    return "nccl" if device.type == "cuda" else "gloo"
+    """The backend for this node's ranks on ``device``: gloo on the CPU,
+    and on the card when the node's ranks (torchrun's ``LOCAL_WORLD_SIZE``)
+    outnumber its cards; NCCL otherwise."""
+    if device.type != "cuda":
+        return "gloo"
+    ranks = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    return "gloo" if ranks > torch.cuda.device_count() else "nccl"
 
 
 _ROUTED = []
@@ -73,9 +78,13 @@ def init_process_group(backend: str, *, cuda_gloo: bool = False,
         _route_functional_all_gather()
     if dist.is_initialized():
         return
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if "RANK" not in os.environ:     # a process on its own: a world of one
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, timeout=timeout)
+        return
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
-    timeout = datetime.timedelta(seconds=timeout_s)
     path = os.environ.get(STORE_ENV)
     if path:
         store = dist.FileStore(path, world)
@@ -107,8 +116,9 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
                             mesh_dim_names=axes)
 
 
-def make_host_mesh(model: int = 1, device="cpu"):
-    """(data = world // model, model) over every rank of the group."""
+def make_host_mesh(model: int, device):
+    """(data = world // model, model) over every rank of the group, on
+    ``device``'s type (the caller's device: nothing here picks one)."""
     from torch.distributed.device_mesh import init_device_mesh
     world = dist.get_world_size()
     if model < 1 or world % model:

@@ -39,26 +39,42 @@ gauges from ``hw.chip.publish_report`` for ``cim_tiled``).
 the scrape must equal ``exposition()``); ``--snapshot-out FILE`` writes
 periodic snapshots.
 
-``--mesh-model`` is accepted for the reference's command lines and raises,
-naming the ROADMAP slice that brings it.
+``--mesh-model M`` serves under a (data = world // M, model = M) mesh of
+processes, one rank each (``launch.mesh``: ``RANK``/``WORLD_SIZE`` and
+``REPRO_TORCH_STORE`` or torchrun's variables; a process started without
+them is a world of one). Every rank builds the same params and trace; the
+engine replicates the params (a KAN artifact whole on every rank), places
+its paged cache by ``decode.paged_cache_spec`` and runs each tick as
+DTensors, so every rank takes the same greedy tokens and the same host
+decisions. Rank 0 prints; ``--check`` holds on every rank, and a failing
+rank exits non-zero. On the CPU:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch mamba2_1p3b --smoke --check \
+        --slots 2 --requests 6 --mesh-model 2 --device cpu
+
+The backend is ``launch.mesh.default_backend``'s: gloo on the CPU or for
+ranks sharing one card (NCCL refuses two ranks on one GPU), NCCL with one
+rank per card.
 """
 import argparse
 import dataclasses
 import json
+import os
 import sys
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
+from repro_torch.dist import sharding as shlib
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import Engine, synth_trace
 from repro_torch.serve.scheduler import AdmissionQueue, Request
 
-MESH_SLICE = "ROADMAP Slice F (distribution)"
-
-
 def _check_flags(args) -> None:
-    """The reference's argument errors, then the one flag of a later
-    slice."""
+    """The reference's argument errors."""
     if args.replicas > 1 and args.mesh_model:
         raise SystemExit("--replicas and --mesh-model are mutually "
                          "exclusive: a router replica holds the whole "
@@ -68,9 +84,6 @@ def _check_flags(args) -> None:
                                         args.replicas > 1):
         raise SystemExit("--drift-replica needs the router path: require "
                          "--replicas > 1 and 0 <= drift-replica < replicas")
-    if args.mesh_model:
-        raise NotImplementedError(f"--mesh-model is not ported yet: "
-                                  f"{MESH_SLICE}")
 
 
 def lenient_slos():
@@ -133,7 +146,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--queue-cap", type=int, default=0,
                     help="bounded admission queue (0 = unbounded)")
     ap.add_argument("--mesh-model", type=int, default=0,
-                    help="the reference's host mesh: not ported (raises)")
+                    help="serve under a (world // M, M) host mesh of "
+                         "ranks (0 = no mesh)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="serve through the multi-replica router with this "
                          "many engines (1 = a single engine; incompatible "
@@ -180,6 +194,28 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     _check_flags(args)
     device = resolve_device(args.device)
+    if not args.mesh_model:
+        return _serve(args, device, None)
+    joined = not torch.distributed.is_initialized()
+    meshlib.init_process_group(meshlib.default_backend(device),
+                               cuda_gloo=device.type == "cuda")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+    try:
+        mesh = meshlib.make_host_mesh(args.mesh_model, device)
+        with shlib.use_mesh(mesh):
+            return _serve(args, device, mesh)
+    finally:
+        if joined:      # leave only a group this call joined
+            meshlib.destroy()
+
+
+def _serve(args, device, mesh) -> dict:
+    """The launcher's run on ``device``, under ``mesh`` if not None (the
+    engines then take the rank's device from the mesh; rank 0 prints)."""
+    lead = meshlib.rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     m = get_arch(args.arch, smoke=args.smoke).model
     if args.kan_backend:
@@ -195,7 +231,8 @@ def main(argv=None) -> dict:
     max_len = args.common_prefix + args.prompt_len + args.new_tokens
     eng_kw = dict(n_slots=args.slots, max_len=max_len,
                   page_size=args.page_size or None,
-                  n_pages=args.n_pages or None, device=device)
+                  n_pages=args.n_pages or None,
+                  device=None if mesh is not None else device)
 
     recorder = None
     if (args.trace_out or args.metrics_out or args.snapshot_out
@@ -206,7 +243,7 @@ def main(argv=None) -> dict:
     if args.metrics_port >= 0:
         from repro_torch.obs import MetricsHTTPServer
         server = MetricsHTTPServer(recorder, port=args.metrics_port).start()
-        print(f"metrics endpoint -> {server.url}")
+        say(f"metrics endpoint -> {server.url}")
     if args.snapshot_out:
         from repro_torch.obs import PeriodicSnapshotWriter
         writer = PeriodicSnapshotWriter(
@@ -278,15 +315,15 @@ def main(argv=None) -> dict:
             reqs[0].eos_id = int(probe[0].tokens[1])
         comps = eng.run(reqs)
 
-    if recorder is not None:
+    if recorder is not None and lead:
         if eng.kan_deployed and m.kan_backend == "cim_tiled":
             _publish_chip(eng.params, recorder.metrics)
         if args.trace_out:
-            print(f"trace  -> {recorder.export_trace(args.trace_out)}")
+            say(f"trace  -> {recorder.export_trace(args.trace_out)}")
         if args.metrics_out:
-            print(f"metrics -> {recorder.export_metrics(args.metrics_out)}")
+            say(f"metrics -> {recorder.export_metrics(args.metrics_out)}")
     if writer is not None:
-        print(f"snapshots -> {writer.stop()} ({writer.writes} writes)")
+        say(f"snapshots -> {writer.stop()} ({writer.writes} writes)")
     scrape = live_snap = None
     if server is not None:
         # self-scrape the live endpoint after all telemetry has landed
@@ -295,21 +332,23 @@ def main(argv=None) -> dict:
             scrape = resp.read().decode()
         with urllib.request.urlopen(server.url + ".json") as resp:
             live_snap = json.loads(resp.read().decode())
-        print(f"scraped {server.url}: {len(scrape)} bytes "
-              f"({server.scrapes} scrapes served)")
+        say(f"scraped {server.url}: {len(scrape)} bytes "
+            f"({server.scrapes} scrapes served)")
         server.stop()
 
     rep = router.report() if router is not None else eng.stats.report()
     kan_note = (f" kan_backend={m.kan_backend} (deployed once)"
                 if eng.kan_deployed else "")
-    print(f"arch={m.name} slots={args.slots} requests={args.requests} "
-          f"stagger={args.stagger} device={device} "
-          f"replicas={args.replicas}{kan_note}")
-    print(json.dumps(rep, indent=1))
+    mesh_note = (f" mesh={shlib.mesh_sizes(mesh)} ranks={mesh.size()}"
+                 if mesh is not None else "")
+    say(f"arch={m.name} slots={args.slots} requests={args.requests} "
+        f"stagger={args.stagger} device={device} "
+        f"replicas={args.replicas}{kan_note}{mesh_note}")
+    say(json.dumps(rep, indent=1))
     for c in comps[:4]:
-        print(f"  rid={c.rid} reason={c.reason} slot={c.slot} "
-              f"ticks={c.admitted_tick}->{c.finished_tick} "
-              f"tokens={list(c.tokens)[:8]}")
+        say(f"  rid={c.rid} reason={c.reason} slot={c.slot} "
+            f"ticks={c.admitted_tick}->{c.finished_tick} "
+            f"tokens={list(c.tokens)[:8]}")
 
     if args.check and scrape is not None:
         if scrape != recorder.metrics.exposition():
@@ -318,8 +357,8 @@ def main(argv=None) -> dict:
         if live_snap.get("schema") != "obs/v1":
             raise SystemExit("metrics check FAILED: /metrics.json schema "
                              f"is {live_snap.get('schema')!r}, want obs/v1")
-        print("metrics endpoint check OK: scrape matches exposition, "
-              "snapshot schema obs/v1")
+        say("metrics endpoint check OK: scrape matches exposition, "
+            "snapshot schema obs/v1")
     if args.check and router is not None:
         _check_router(args, rep, router, comps, ref_comps, eos_planted)
     elif args.check:
@@ -335,7 +374,7 @@ def main(argv=None) -> dict:
             problems.append("eviction accounting does not add up")
         if problems:
             raise SystemExit("engine check FAILED: " + "; ".join(problems))
-        print("engine check OK: slot reuse, EOS eviction, full completion")
+        say("engine check OK: slot reuse, EOS eviction, full completion")
     return rep
 
 

@@ -19,8 +19,8 @@ The parameters are initialised packed for M model shards, placed by
 is split by ``("batch", "seq")``, and the step runs under the mesh. The
 resume goes through ``checkpoint.restore(shardings=)``, so a run saved on
 one mesh resumes on another. Only rank 0 prints and writes checkpoints.
-``--dist-backend`` is NCCL on the card and gloo with ``--device cpu`` by
-default; ranks that share one card need ``--dist-backend gloo``. Without
+``--dist-backend`` defaults to ``launch.mesh.default_backend``: NCCL with
+one rank per card, gloo on the CPU or for ranks sharing a card. Without
 ``--host-mesh``, ``--model-parallel`` is ignored, as in the reference.
 
 Fault-tolerance behaviour (the reference's):

@@ -25,7 +25,9 @@ by ``paged_gather`` and written by ``paged_cache_update`` (one decode token
 per slot) and ``paged_prefill_update`` (one slot's prefill chunk). Where
 the reference returns updated pools (donated, so XLA updates them in
 place), these write the given pool in place: the engine's pools are the
-whole KV memory, and a copy per tick would move all of it.
+whole KV memory, and a copy per tick would move all of it. Under a mesh
+(DTensor pools, split on their kv heads or head dim and never on the page
+axes) each rank gathers and writes its own shard (``sharding.setitem_``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.dist.sharding import (as_dtensors, contiguous_grad,
-                                       placements_of)
+                                       is_dtensor, placements_of, setitem_)
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -60,17 +62,21 @@ def _heads_out(out: Tensor, b: int, s: int, hq: int, dtype) -> Tensor:
     return out.reshape(b, s, hq, hd).to(dtype)
 
 
-def _on_shards(fn, q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
+def _on_shards(fn, q: Tensor, k: Tensor, v: Tensor, rows=None, **kw
+               ) -> Tensor:
     """``fn(q, k, v, **kw)`` on each rank's shard when an input is a
     DTensor (``local_map``): per mesh dim the batch stays split if q's is,
     else the heads if q's and the kv heads both are (query head h reads kv
     head h // G, so contiguous splits of both keep each group whole), else
     all three replicate. Every split is one that attention runs apart on,
-    so no gradient is partial."""
+    so no gradient is partial. ``rows``, a [B] tensor, goes to ``fn`` as
+    its keyword ``rows``, split as the batch is."""
+    if rows is not None:
+        kw["rows"] = rows
     mesh, (q, k, v) = as_dtensors(q, k, v)
     if mesh is None:
         return fn(q, k, v, **kw)
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     pl = []
     for pq, pk, pv in zip(placements_of(q), placements_of(k),
@@ -81,12 +87,19 @@ def _on_shards(fn, q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
             pl.append(Shard(2))
         else:
             pl.append(Replicate())
-    def local(a, b, c):
+    ins, in_pl = [q, k, v], [pl, pl, pl]
+    if rows is not None:
+        ins.append(DTensor.from_local(kw.pop("rows"), mesh,
+                                      [Replicate()] * mesh.ndim,
+                                      run_check=False))
+        in_pl.append([p if p.is_shard(0) else Replicate() for p in pl])
+
+    def local(a, b, c, *r):
+        extra = {"rows": r[0]} if r else {}
         return fn(contiguous_grad(a), contiguous_grad(b), contiguous_grad(c),
-                  **kw)
-    return local_map(local, out_placements=pl,
-                     in_placements=(pl, pl, pl), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v)
+                  **kw, **extra)
+    return local_map(local, out_placements=pl, in_placements=tuple(in_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(*ins)
 
 
 def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -203,8 +216,21 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     ``cache_index`` = the number of valid tokens in the cache INCLUDING the
     current one: a scalar, or a [B] vector (each row at its own count). For
     a rolling (windowed) cache every slot < min(index, T) is valid; softmax
-    does not depend on the slots' order.
+    does not depend on the slots' order. DTensor inputs run on each rank's
+    shard (``_on_shards``).
     """
+    if isinstance(cache_index, Tensor) and cache_index.ndim:
+        return _on_shards(_decode_attention, q, k_cache, v_cache,
+                          rows=cache_index, rolling=rolling)
+    return _on_shards(_decode_attention, q, k_cache, v_cache,
+                      cache_index=cache_index, rolling=rolling)
+
+
+def _decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                      cache_index=None, *, rolling: bool,
+                      rows=None) -> Tensor:
+    if rows is not None:
+        cache_index = rows
     b, _, hq, hd = q.shape
     t, n_kv = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
@@ -263,6 +289,16 @@ def paged_gather(pool: Tensor, pages: Tensor) -> Tensor:
     position order, so it drops into ``decode_attention`` and
     ``chunked_attention`` like a cache row (garbage-page entries lie past
     the valid length, where they are masked)."""
+    if is_dtensor(pool):
+        from torch.distributed.tensor.experimental import local_map
+        pl = list(placements_of(pool))   # the page axes are whole
+        return local_map(_paged_gather, out_placements=pl,
+                         in_placements=(pl, None),
+                         device_mesh=pool.device_mesh)(pool, pages)
+    return _paged_gather(pool, pages)
+
+
+def _paged_gather(pool: Tensor, pages: Tensor) -> Tensor:
     b, p = pages.shape
     _, ps, n_kv, hd = pool.shape
     return pool[pages].reshape(b, p * ps, n_kv, hd)
@@ -280,8 +316,8 @@ def paged_cache_update(k_pool: Tensor, v_pool: Tensor, k_new: Tensor,
     ps = k_pool.shape[1]
     phys = torch.gather(pages, 1, (index // ps)[:, None])[:, 0]
     within = index % ps
-    k_pool[phys, within] = k_new[:, 0].to(k_pool.dtype)
-    v_pool[phys, within] = v_new[:, 0].to(v_pool.dtype)
+    setitem_(k_pool, (phys, within), k_new[:, 0])
+    setitem_(v_pool, (phys, within), v_new[:, 0])
 
 
 def paged_prefill_update(k_pool: Tensor, v_pool: Tensor, k_new: Tensor,
@@ -296,12 +332,37 @@ def paged_prefill_update(k_pool: Tensor, v_pool: Tensor, k_new: Tensor,
     start // ps + ceil(L / ps)]``: pages the slot allocated itself, never
     a shared prefix page."""
     ps = k_pool.shape[1]
-    _, l, n_kv, hd = k_new.shape
-    n_cp = -(-l // ps)
-    pad = n_cp * ps - l
-    if pad:
-        k_new = torch.nn.functional.pad(k_new, (0, 0, 0, 0, 0, pad))
-        v_new = torch.nn.functional.pad(v_new, (0, 0, 0, 0, 0, pad))
+    n_cp = -(-k_new.shape[1] // ps)
     dst = pages_row[start // ps:start // ps + n_cp]
-    k_pool[dst] = k_new[0].reshape(n_cp, ps, n_kv, hd).to(k_pool.dtype)
-    v_pool[dst] = v_new[0].reshape(n_cp, ps, n_kv, hd).to(v_pool.dtype)
+    write_pages_(k_pool, (), dst, k_new[0])
+    write_pages_(v_pool, (), dst, v_new[0])
+
+
+def write_pages_(pool: Tensor, lead: tuple, pages: Tensor, rows: Tensor
+                 ) -> None:
+    """Write ``rows`` [..., L, Kv, hd] into the pages ``pages`` [ceil(L /
+    ps)] of ``pool`` [..., n_pages, ps, Kv, hd] (``lead``: the selectors of
+    its leading dims), in place, the last page's tail zeroed: what padding
+    the rows to whole pages and writing them would give, without padding a
+    DTensor (a plain pool is padded and written at once)."""
+    ps = pool.shape[len(lead) + 1]
+    if not is_dtensor(pool):
+        n_cp = pages.shape[0]
+        pad = n_cp * ps - rows.shape[-3]
+        if pad:
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+        pool[lead + (pages,)] = rows.reshape(
+            rows.shape[:-3] + (n_cp, ps) + rows.shape[-2:]).to(pool.dtype)
+        return
+    n_full, rem = divmod(rows.shape[-3], ps)
+    if n_full:
+        setitem_(pool, lead + (pages[:n_full],), rows[
+            ..., :n_full * ps, :, :].reshape(rows.shape[:-3] + (n_full, ps)
+                                              + rows.shape[-2:]))
+    if rem:
+        last = pages[n_full:n_full + 1]
+        setitem_(pool, lead + (last, slice(0, rem)),
+                 rows[..., n_full * ps:, :, :].unsqueeze(-4))
+        setitem_(pool, lead + (last, slice(rem, ps)), torch.zeros(
+            rows.shape[:-3] + (1, ps - rem) + rows.shape[-2:],
+            dtype=pool.dtype, device=pool.device))

@@ -137,6 +137,14 @@ def top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+
+def _bincount(ids: Tensor, n: int) -> Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in [0, n): the same
+    counts, with a shape known from the shapes alone (so it also runs on
+    meta tensors, where ``bincount`` has no kernel)."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add(
+        0, ids, torch.ones_like(ids))
+
 def _dispatch(tokens: Tensor, router_w: Tensor, cfg: MoEConfig,
               capacity: int):
     """Routing + capacity dispatch. tokens: [T, D].
@@ -155,7 +163,7 @@ def _dispatch(tokens: Tensor, router_w: Tensor, cfg: MoEConfig,
 
     # aux losses (Switch/Mixtral style)
     me = probs.mean(dim=0)                                        # [E]
-    ce = (torch.bincount(top_e.reshape(-1), minlength=e).to(torch.float32)
+    ce = (_bincount(top_e.reshape(-1), e).to(torch.float32)
           / (t * k))
     lb_loss = cfg.load_balance_coef * e * torch.sum(me * ce)
     z_loss = cfg.router_z_coef * torch.mean(
@@ -167,7 +175,7 @@ def _dispatch(tokens: Tensor, router_w: Tensor, cfg: MoEConfig,
     order = torch.argsort(slot_e, stable=True)
     se, sw = slot_e[order], slot_w[order]
     st = torch.div(order, k, rounding_mode="floor")   # the slot's token
-    counts = torch.bincount(se, minlength=e)
+    counts = _bincount(se, e)
     starts = torch.cumsum(counts, 0) - counts                     # [E]
     rank = torch.arange(t * k, device=dev) - starts[se]
     keep = rank < capacity

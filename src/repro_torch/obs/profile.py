@@ -28,13 +28,6 @@ import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-# NVIDIA's H100 SXM data sheet, dense: bf16 tensor cores, HBM3, NVLink
-# (each way)
-PEAK_FLOPS = 989e12
-HBM_BW = 3.35e12
-LINK_BW = 450e9
-
-
 @dataclasses.dataclass(frozen=True)
 class CompileEvent:
     """The first call of a profiled callable for one shape key."""
@@ -123,21 +116,6 @@ def maybe_profile(fn, name: str, recorder):
     return JitProfiler(fn, name, recorder)
 
 
-def roofline_terms(flops: float, n_bytes: float, coll_bytes: float
-                   ) -> Dict[str, float]:
-    """Three roofline times (seconds) on one H100 + the dominant term."""
-    t_compute = flops / PEAK_FLOPS
-    t_memory = n_bytes / HBM_BW
-    t_coll = coll_bytes / LINK_BW
-    dom = max(("compute", t_compute), ("memory", t_memory),
-              ("collective", t_coll), key=lambda kv: kv[1])[0]
-    total = max(t_compute, t_memory, t_coll)
-    return {"t_compute_s": t_compute, "t_memory_s": t_memory,
-            "t_collective_s": t_coll, "dominant": dom,
-            "bound_step_s": total,
-            "roofline_fraction": (t_compute / total) if total > 0 else 0.0}
-
-
 def roofline_rows(snapshot: dict) -> List[dict]:
     """Per-callable roofline terms from an obs metrics snapshot: the
     ``compiled_flops{fn=...}`` / ``compiled_bytes{fn=...}`` gauges through
@@ -152,6 +130,7 @@ def roofline_rows(snapshot: dict) -> List[dict]:
         elif key.startswith("compiled_bytes{"):
             fn = key.split('fn="', 1)[1].split('"', 1)[0]
             nbytes[fn] = data.get("value") or 0.0
+    from repro_torch.analysis import roofline_terms
     rows = []
     for fn in sorted(set(flops) | set(nbytes)):
         f, b = flops.get(fn, 0.0), nbytes.get(fn, 0.0)

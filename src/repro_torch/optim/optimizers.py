@@ -81,6 +81,10 @@ def _zeros_f32(p: Tensor, drop: int = -1) -> Tensor:
             pl.append(Replicate())
         else:
             pl.append(Shard(q.dim - 1 if 0 <= drop < q.dim else q.dim))
+    if p.to_local().is_meta:    # the dry run: shapes only, on meta
+        from repro_torch.dist.sharding import local_to_dtensor
+        return local_to_dtensor(torch.zeros(shape, dtype=torch.float32,
+                                            device="meta"), p.device_mesh, pl)
     return dzeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
                   placements=pl)
 

@@ -35,7 +35,10 @@ to a solo run, or None for families that prefill in one piece. Unlike the
 reference, which returns new caches (donated, so XLA writes them in
 place), the paged functions write the engine's cache in place and return
 it: the pools are the whole KV memory, and a copy per tick would move all
-of it. The static-batch functions still return new caches.
+of it. The static-batch functions still return new caches. Under a mesh
+the engine's cache is DTensors placed by ``paged_cache_spec``, and every
+in-place write goes through ``sharding.setitem_``: each rank writes its own
+shard.
 """
 from __future__ import annotations
 
@@ -46,6 +49,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import sharding as shlib
+from repro_torch.dist.sharding import setitem_
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
@@ -319,7 +324,7 @@ def _mask_state_writes_(new, cache, pages: Tensor) -> None:
     for k, v in new.items():
         c = cache[k]
         mask = act.reshape((-1,) + (1,) * (v.ndim - 1))
-        c.copy_(torch.where(mask, v.to(c.dtype), c))
+        setitem_(c, (), torch.where(mask, v.to(c.dtype), c))
 
 
 def _decode_layer_paged(p, cache, x: Tensor, spec: LayerSpec,
@@ -338,7 +343,7 @@ def _decode_layer_paged(p, cache, x: Tensor, spec: LayerSpec,
             _mask_state_writes_(new, cache, pages)
         else:
             for k, v in new.items():
-                cache[k].copy_(v)
+                setitem_(cache[k], (), v)
         return x
     xn = layers.NORM_APPLY[cfg.norm](p["mixer_norm"], x)
     q, k, v = tfm.qkv(p, xn, cfg)
@@ -568,7 +573,7 @@ def _chunk_layer(p, cache, x: Tensor, spec: LayerSpec, cfg: ModelConfig,
         row = {k: cache[k][slot:slot + 1] for k in ("state", "conv_buf")}
         y, rc = _ssd_prefill_chunk(p["ssd"], xn, cfg, row, first)
         for k, v in rc.items():
-            row[k].copy_(v)         # row[k] is a view of the slot's row
+            setitem_(cache[k], (slice(slot, slot + 1),), v)
         x = x + y.to(x.dtype)
     else:
         raise NotImplementedError(
@@ -597,7 +602,14 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens: Tensor,
     if not last:
         return torch.zeros((1,), dtype=torch.long, device=x.device), cache
     logits = tfm.logits_from(params, cfg, x[:, -1:])
-    return torch.argmax(logits[:, -1], dim=-1), cache
+    return greedy(logits), cache
+
+
+def greedy(logits: Tensor) -> Tensor:
+    """The argmax over the vocab of the last position [B, ..., V] -> [B],
+    on logits whole on every rank (a vocab-parallel DTensor is gathered
+    first), so every rank picks the same ids."""
+    return torch.argmax(shlib.full(logits)[:, -1], dim=-1)
 
 
 def generate(params, cfg: ModelConfig, prompt, n_new: int,

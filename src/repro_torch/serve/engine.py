@@ -60,6 +60,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import kan
+from repro_torch.dist import sharding as shlib
+from repro_torch.dist.sharding import setitem_
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.obs.recorder import NullRecorder
@@ -76,13 +79,13 @@ def _decode_fn(params, cache, tokens, index, pages, *, cfg):
     the next tokens [N] (long). Writes the cache in place."""
     logits, cache = dec.decode_step(params, cache, tokens, index, cfg,
                                     pages=pages)
-    return torch.argmax(logits[:, -1, :], dim=-1), cache
+    return dec.greedy(logits), cache
 
 
 def _prefill_fn(params, batch, *, cfg, max_len):
     logits, cache = dec.prefill(params, cfg, batch, max_len=max_len,
                                 last_only=True)
-    return torch.argmax(logits[:, -1, :], dim=-1), cache
+    return dec.greedy(logits), cache
 
 
 def _chunk_fn(params, cache, tokens, start, slot, pages_row, *, cfg, first,
@@ -99,27 +102,17 @@ def _scatter_fn(pool, solo, slot, pages_row, *, stages, page_size):
     past the prompt, overwrite garbage), every per-slot leaf into row
     ``slot``."""
     for pool_blk, solo_blk, stage in zip(pool, solo, stages):
-        stacked = stage.repeats > 1
+        lead = (slice(None),) if stage.repeats > 1 else ()
         for i, sp in enumerate(stage.block):
             pc, sc = pool_blk[f"l{i}"], solo_blk[f"l{i}"]
             for key, pl in pc.items():
-                sl = sc[key]
+                row = sc[key][lead + (0,)]
                 if sp.mixer == "attn" and key in ("k", "v"):
-                    row = sl[:, 0] if stacked else sl[0]     # [.., T, Kv, hd]
-                    n_cp = pages_row.shape[0]
-                    t = row.shape[-3]
-                    row = torch.nn.functional.pad(
-                        row, (0, 0, 0, 0, 0, n_cp * page_size - t))
-                    row = row.reshape(row.shape[:-3] + (n_cp, page_size)
-                                      + row.shape[-2:]).to(pl.dtype)
-                    if stacked:
-                        pl[:, pages_row] = row
-                    else:
-                        pl[pages_row] = row
-                elif stacked:
-                    pl[:, slot] = sl[:, 0].to(pl.dtype)
+                    # row: [.., T, Kv, hd], T = max_len: the table's
+                    # ceil(T / page_size) pages
+                    attn_lib.write_pages_(pl, lead, pages_row, row)
                 else:
-                    pl[slot] = sl[0].to(pl.dtype)
+                    setitem_(pl, lead + (slot,), row)
     return pool
 
 
@@ -127,14 +120,12 @@ def _copy_page_fn(cache, src: int, dst: int, *, stages):
     """Copy page ``src`` to ``dst`` in every full-attention pool (the
     device half of copy-on-write ``fork``), in place."""
     for blk, stage in zip(cache, stages):
+        lead = (slice(None),) if stage.repeats > 1 else ()
         for i, sp in enumerate(stage.block):
             if sp.mixer == "attn":
                 for key in ("k", "v"):
                     leaf = blk[f"l{i}"][key]
-                    if stage.repeats > 1:
-                        leaf[:, dst] = leaf[:, src]
-                    else:
-                        leaf[dst] = leaf[src]
+                    setitem_(leaf, lead + (dst,), leaf[lead + (src,)])
     return cache
 
 
@@ -183,13 +174,27 @@ class Engine:
                  queue: Optional[AdmissionQueue] = None,
                  eos_id: Optional[int] = None, enc_len: int = 0,
                  device=None, recorder=None):
-        self.device = resolve_device(device)
+        self.mesh = shlib.current_mesh()
+        if self.mesh is not None:
+            if device is not None:
+                raise ValueError("Engine: device placement and an active "
+                                 "sharding mesh are mutually exclusive — "
+                                 "a replica is either pinned whole to one "
+                                 "device or sharded across the mesh")
+            self.device = _rank_device(self.mesh)
+        else:
+            self.device = resolve_device(device)
         params = tfm.tree_map(
             lambda t: t.to(self.device) if isinstance(t, torch.Tensor)
-            else t, params)
+            and not shlib.is_dtensor(t) else t, params)
         # deploy() runs exactly once, here: no tick quantises coefficients
         # or builds a LUT
         self.params = tfm.deploy_kan(params, cfg)
+        if self.mesh is not None:
+            # the reference serves unplaced (replicated) params under a
+            # mesh; a KAN artifact stays whole and plain on every rank,
+            # where kan.apply runs it on the rank's rows
+            self.params = shlib.replicate_tree(self.params, self.mesh)
         self.kan_deployed = kan.contains_deployed(self.params)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -218,6 +223,9 @@ class Engine:
                                           page_size=page_size,
                                           n_pages=n_pages, device=self.device,
                                           enc_len=enc_len)
+        if self.mesh is not None:
+            self.cache = shlib.distribute_tree(self.cache, self.mesh,
+                                               dec.paged_cache_spec(cfg))
 
         # host-side per-slot state
         self.active = np.zeros(n_slots, dtype=bool)       # decoding
@@ -528,7 +536,13 @@ class Engine:
     def step(self) -> List[Completion]:
         """One engine tick: admit whatever fits (slots AND pages), advance
         every prefilling slot by one chunk, then one fused decode over all
-        slots. Returns the requests completed during this tick."""
+        slots. Returns the requests completed during this tick. The tick
+        runs under the engine's own mesh (or none), whatever mesh the
+        caller has entered."""
+        with shlib.use_mesh(self.mesh):
+            return self._step()
+
+    def _step(self) -> List[Completion]:
         done: List[Completion] = []
         obs = self.obs
         with obs.phase("admit"):
@@ -657,6 +671,13 @@ class Engine:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+def _rank_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: its current card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
 
 def synth_trace(vocab: int, n_requests: int, *, max_prompt: int = 12,
                 min_prompt: int = 4, max_new: int = 8, min_new: int = 3,

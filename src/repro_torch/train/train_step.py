@@ -21,7 +21,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.dist.sharding import is_dtensor
+from repro_torch.dist.sharding import (full, is_dtensor, placements_of,
+                                       shard)
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           tree_leaves, tree_map)
@@ -49,9 +50,17 @@ def value_and_grad(loss_fn: Callable, params, *args):
             tree_map(lambda _: next(grads), params))
 
 
-def _plain(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor metric as the whole tensor, the same on every rank."""
-    return t.full_tensor() if is_dtensor(t) else t
+def _microbatches(v, accum: int):
+    """[B, ...] -> [accum, B / accum, ...]. A DTensor is made whole along
+    B first (DTensor cannot split a sharded dim in a view) and its
+    microbatches' rows are split again by the batch rule."""
+    shape = (accum, v.shape[0] // accum) + tuple(v.shape[1:])
+    if not is_dtensor(v):
+        return v.reshape(shape)
+    from torch.distributed.tensor import Replicate
+    whole = [Replicate() if p.is_shard(0) else p for p in placements_of(v)]
+    return shard(v.redistribute(v.device_mesh, whole).reshape(shape), None,
+                 "batch")
 
 
 def make_train_step(model_cfg: tfm.ModelConfig, opt: Optimizer,
@@ -71,8 +80,7 @@ def make_train_step(model_cfg: tfm.ModelConfig, opt: Optimizer,
             loss, metrics, grads = value_and_grad(loss_fn, params, model_cfg,
                                                   batch)
         else:
-            mbs = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
-                   for k, v in batch.items()}
+            mbs = {k: _microbatches(v, accum) for k, v in batch.items()}
             grads = tree_map(lambda p: torch.zeros_like(
                 p, dtype=tcfg.grad_dtype), params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -93,6 +101,6 @@ def make_train_step(model_cfg: tfm.ModelConfig, opt: Optimizer,
         params, opt_state = opt.update(grads, opt_state, params)
         out: Dict[str, torch.Tensor] = dict(metrics)
         out.update({"loss": loss, "grad_norm": gnorm})
-        return params, opt_state, {k: _plain(v) for k, v in out.items()}
+        return params, opt_state, {k: full(v) for k, v in out.items()}
 
     return train_step

@@ -267,10 +267,14 @@ def test_launcher_single_engine_cim_tiled_publishes_the_chip(tmp_path):
     assert snap["chip_tiles_allocated"]["value"] > 0
 
 
-def test_launcher_mesh_model_still_raises():
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tlaunch.main(["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu",
-                      "--mesh-model", "2"])
+def test_launcher_mesh_model_still_raises(capsys):
+    """``--mesh-model`` serves (here on a world of one rank, under a 1x1
+    mesh, ``--check`` holding); with ``--replicas`` it still raises the
+    reference's argument error."""
+    rep = tlaunch.main(["--arch", "mamba2_1p3b", "--smoke", "--device",
+                        "cpu", "--mesh-model", "1", "--check"])
+    assert rep["completed"] == 8
+    assert "mesh={'data': 1, 'model': 1} ranks=1" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="mutually exclusive"):
         tlaunch.main(["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu",
                       "--replicas", "2", "--mesh-model", "2"])

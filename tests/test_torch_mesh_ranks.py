@@ -310,10 +310,60 @@ def ckpt_restore_case(inp):
                              for t in tfm.tree_leaves(params)]}
 
 
+def serve_case(inp):
+    """Per served config on a (2, 2) mesh: the completion tokens of an
+    ``Engine`` over the given params and trace, the local shapes of its
+    cache leaves (by key path), whether a mesh was left current, and the
+    tokens of ``launch.serve --mesh-model 2`` on the given command line."""
+    import dataclasses
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import engine as eng_lib
+    runs = []
+    run = eng_lib.Engine.run
+
+    def spy(self, *args, **kw):
+        comps = run(self, *args, **kw)
+        runs.append(comps)
+        return comps
+    eng_lib.Engine.run = spy
+    mesh = meshlib.make_host_mesh(2, "cpu")
+    out = {}
+    for key, c in inp["configs"].items():
+        m = dataclasses.replace(get_arch(c["arch"], smoke=True).model,
+                                **c["over"])
+        params = tfm.params_from_numpy(c["params"], device="cpu")
+        with sh.use_mesh(mesh):
+            eng = eng_lib.Engine(params, m, **inp["eng_kw"])
+            comps = eng.run(eng_lib.synth_trace(m.vocab, **inp["trace"]))
+        shapes = {k: tuple(v.to_local().shape)
+                  for k, v in ckpt._leaf_paths(eng.cache).items()}
+        leaked = sh.current_mesh() is not None
+        runs.clear()
+        launch.main(c["argv"] + ["--mesh-model", "2", "--device", "cpu"])
+        served = {x.rid: [int(t) for t in x.tokens]
+                  for r in runs for x in r if x.rid != "probe"}
+        out[key] = {"engine": {x.rid: [int(t) for t in x.tokens]
+                               for x in comps},
+                    "shapes": shapes, "leaked": leaked, "launcher": served}
+    return out
+
+
+def launch_serve_case(inp):
+    """``launch.serve.main`` on this rank; its report."""
+    from repro_torch.launch import serve as launch
+    return launch.main(inp["argv"])
+
+
 CASES = {
     "psum": psum_case, "placement": placement_case,
     "kernels": kernels_case, "moe": moe_case, "train": train_case,
     "ckpt_save": ckpt_save_case, "ckpt_restore": ckpt_restore_case,
+    "serve": serve_case, "launch_serve": launch_serve_case,
 }
 
 if __name__ == "__main__":

@@ -99,12 +99,13 @@ def test_no_message_names_the_router_slice():
 
 
 def test_only_serving_under_a_mesh_names_slice_f():
-    """Training under a mesh is ported: of the package's modules only the
-    serving launcher (``--mesh-model``) still names ROADMAP Slice F."""
+    """Serving under a mesh is ported too: no module of the package, and
+    not ``chip_smoke.py``, names ROADMAP Slice F."""
     naming = sorted(p.relative_to(SRC).as_posix()
-                    for p in (SRC / "repro_torch").rglob("*.py")
+                    for p in [*(SRC / "repro_torch").rglob("*.py"),
+                              SRC.parent / "chip_smoke.py"]
                     if "Slice F" in p.read_text())
-    assert naming == ["repro_torch/launch/serve.py"]
+    assert naming == []
 
 
 def test_entry_points_need_a_card_unless_told(monkeypatch):

@@ -512,13 +512,24 @@ def test_launcher_check_on_the_cpu(argv, tmp_path, capsys):
                                   ["--replicas", "2", "--drift-replica", "2"],
                                   ["--mesh-model", "1"],
                                   ["--mesh-model", "2"]])
-def test_launcher_later_slices_raise(flag):
-    """``--mesh-model`` is Slice F and raises naming it; the router's flags
-    are ported and raise only the reference's argument errors."""
+def test_launcher_later_slices_raise(flag, tmp_path):
+    """``--mesh-model M`` serves on a world of M ranks (one in this
+    process, two as gloo ranks through ``test_torch_mesh_ranks``), every
+    rank's ``--check`` holding; the router's flags raise only the
+    reference's argument errors."""
     argv = ["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu"] + flag
     if flag[0] == "--mesh-model":
-        with pytest.raises(NotImplementedError, match="ROADMAP Slice F"):
-            tlaunch.main(argv)
+        n = int(flag[1])
+        argv += ["--check"]
+        if n == 1:
+            reps = [tlaunch.main(argv)]
+        else:
+            from test_torch_mesh_ranks import run_ranks
+            reps = run_ranks("launch_serve", n, tmp_path, {"argv": argv})
+        for rep in reps:
+            assert rep["completed"] == 8 and rep["slot_reuse"] > 1
+        assert all(rep["slot_served"] == reps[0]["slot_served"]
+                   for rep in reps)
     else:
         with pytest.raises(SystemExit, match="--replicas|--drift-replica"):
             tlaunch.main(argv)
