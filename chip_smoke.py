@@ -3085,12 +3085,16 @@ def launcher_phase(timer, dev):
     # attenuation and gains, bit for bit; each shape timed once
     rows, timed = [], set()
     for (_, n, where), (v, w, att, kw) in captured.items():
-        check(set(kw) <= {"gain", "array_size", "adc_bits", "in_scale"}
+        # ``rows_iterated`` is the stage counter (None untraced), not a
+        # setting
+        shown = {k: v for k, v in kw.items()
+                 if k not in ("gain", "rows_iterated")}
+        check(set(kw) <= {"gain", "array_size", "adc_bits", "in_scale",
+                          "rows_iterated"}
               and (kw["array_size"], kw["adc_bits"], kw["in_scale"])
               == (tile.array_size, tile.adc_bits, tile.adc_in_scale),
-              f"launcher fleet: the kernel's settings "
-              f"{ {k: v for k, v in kw.items() if k != 'gain'} } are not "
-              f"the tile's {tile}")
+              f"launcher fleet: the kernel's settings {shown} are not the "
+              f"tile's {tile}")
         shape = (where, n, v.shape[1], w.shape[1])
         label = f"launcher {where} [{n}, {v.shape[1]}] -> {w.shape[1]}"
         if shape in timed:

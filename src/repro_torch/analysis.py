@@ -1,5 +1,4 @@
-"""Collective traffic, per-rank FLOPs and roofline terms (port of
-``repro.analysis``), with the H100's constants.
+"""Collective traffic and per-rank FLOPs (port of ``repro.analysis``).
 
 Collective cost model (ring algorithms, per-rank bytes moved), applied to
 each collective from its OUTPUT bytes ``o`` and its group size ``n``, as
@@ -36,12 +35,6 @@ from typing import Dict, Iterable, List, NamedTuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-
-# NVIDIA's H100 SXM data sheet, dense: bf16 tensor cores, HBM3, NVLink
-# (each way)
-PEAK_FLOPS = 989e12
-HBM_BW = 3.35e12
-LINK_BW = 450e9
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -82,21 +75,6 @@ def collective_traffic(records: Iterable[Collective]) -> Dict[str, float]:
         out[rec.kind] += moved
     out["total"] = sum(out.values())
     return out
-
-
-def roofline_terms(flops_per_dev: float, bytes_per_dev: float,
-                   coll_bytes_per_dev: float) -> Dict[str, float]:
-    """Three roofline times (seconds) on one H100 + the dominant term."""
-    t_compute = flops_per_dev / PEAK_FLOPS
-    t_memory = bytes_per_dev / HBM_BW
-    t_coll = coll_bytes_per_dev / LINK_BW
-    dom = max(("compute", t_compute), ("memory", t_memory),
-              ("collective", t_coll), key=lambda kv: kv[1])[0]
-    total = max(t_compute, t_memory, t_coll)
-    return {"t_compute_s": t_compute, "t_memory_s": t_memory,
-            "t_collective_s": t_coll, "dominant": dom,
-            "bound_step_s": total,
-            "roofline_fraction": (t_compute / total) if total > 0 else 0.0}
 
 
 def _group_size(args) -> int:

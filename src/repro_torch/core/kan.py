@@ -47,6 +47,7 @@ from repro_torch import resolve_device
 from repro_torch.core import quant, splines
 from repro_torch.core.quant import ASPConfig
 from repro_torch.dist.sharding import as_dtensors, placements_of
+from repro_torch.obs.trace import stage
 
 
 # ---------------------------------------------------------------------------
@@ -316,13 +317,16 @@ class LutBackend(KANBackend):
     (the plain dataflow the fused kernel fuses)."""
 
     def run(self, layer, lspec, spec, x, generator=None):
-        basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
-        lead = basis.shape[:-2]
-        ik = basis.shape[-2] * basis.shape[-1]
-        e = basis.reshape(lead + (ik,)).to(torch.float32)
-        c = layer.codes.to(torch.float32).reshape(ik, -1)
-        y = e @ c
-        return (y * layer.scale.reshape(-1).to(torch.float32)).to(x.dtype)
+        with stage("kan.basis"):
+            basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+        with stage("kan.mac"):
+            lead = basis.shape[:-2]
+            ik = basis.shape[-2] * basis.shape[-1]
+            e = basis.reshape(lead + (ik,)).to(torch.float32)
+            c = layer.codes.to(torch.float32).reshape(ik, -1)
+            y = e @ c
+            return (y * layer.scale.reshape(-1).to(torch.float32)
+                    ).to(x.dtype)
 
 
 def _up8(n: int) -> int:
@@ -370,16 +374,18 @@ class LutInt8Backend(KANBackend):
                 "codes_t": int8_operand(codes.reshape(-1, codes.shape[-1]))}
 
     def run(self, layer, lspec, spec, x, generator=None):
-        basis = quant.quantized_basis(x, layer.hemi_q, lspec.asp)   # int8
-        lead = basis.shape[:-2]
-        ik = basis.shape[-2] * basis.shape[-1]
-        acc = int8_matmul(basis.reshape(-1, ik), layer.codes_t,
-                          layer.codes.shape[-1]).reshape(lead + (-1,))
-        lsb = torch.full((), quant.HEMI_LSB, dtype=torch.float32,
-                         device=acc.device)
-        y = acc.to(torch.float32) * (
-            layer.scale.reshape(-1).to(torch.float32) * lsb)
-        return y.to(x.dtype)
+        with stage("kan.basis"):
+            basis = quant.quantized_basis(x, layer.hemi_q, lspec.asp)  # int8
+        with stage("kan.mac"):
+            lead = basis.shape[:-2]
+            ik = basis.shape[-2] * basis.shape[-1]
+            acc = int8_matmul(basis.reshape(-1, ik), layer.codes_t,
+                              layer.codes.shape[-1]).reshape(lead + (-1,))
+            lsb = torch.full((), quant.HEMI_LSB, dtype=torch.float32,
+                             device=acc.device)
+            y = acc.to(torch.float32) * (
+                layer.scale.reshape(-1).to(torch.float32) * lsb)
+            return y.to(x.dtype)
 
 
 @register_backend("fused")
@@ -389,8 +395,9 @@ class FusedBackend(KANBackend):
 
     def run(self, layer, lspec, spec, x, generator=None):
         from repro_torch.kernels import ops
-        return ops.kan_spline_fused_deployed(x, layer.codes, layer.scale,
-                                             lspec.asp, hemi=layer.hemi)
+        with stage("kan.mac"):
+            return ops.kan_spline_fused_deployed(x, layer.codes, layer.scale,
+                                                 lspec.asp, hemi=layer.hemi)
 
     def train_run(self, coeffs, lspec, spec, x, qat):
         """The fused kernel inside its QAT autograd Function (forward
@@ -431,13 +438,16 @@ class CimBackend(KANBackend):
 
     def run(self, layer, lspec, spec, x, generator=None):
         from repro_torch.hw import cim as cim_lib
-        basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
-        v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
-        w = layer.codes.reshape(lspec.n_rows, lspec.out_dim)
+        with stage("kan.basis"):
+            basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+            # views (no device work), inside a stage like every op
+            v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
+            w = layer.codes.reshape(lspec.n_rows, lspec.out_dim)
         y = cim_lib.cim_forward(v, w, self._cim_cfg(spec),
                                 atten_of_logical=layer.atten,
                                 generator=generator)
-        return y * layer.scale.reshape(-1)
+        with stage("kan.mac"):
+            return y * layer.scale.reshape(-1)
 
 
 @register_backend("cim_tiled")
@@ -481,11 +491,13 @@ class CimTiledBackend(KANBackend):
 
     def run(self, layer, lspec, spec, x, generator=None):
         from repro_torch.hw import chip as chip_lib
-        basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
-        v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
+        with stage("kan.basis"):
+            basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+            v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
         y = chip_lib.chip_forward(v, layer.tiles, self._chip_cfg(spec),
                                   lspec.out_dim, generator=generator)
-        return y * layer.scale.reshape(-1)
+        with stage("kan.mac"):
+            return y * layer.scale.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -565,20 +577,28 @@ def apply(deployed: DeployedKAN, x: torch.Tensor, *,
     backend. Performs no coefficient quantisation and builds no LUTs.
     ``generator`` draws the cim and cim_tiled backends' readout noise.
     A DTensor ``x`` runs on each rank's shard against the whole artifact
-    (``_apply_on_shards``)."""
-    mesh, (xd,) = as_dtensors(x)
-    if mesh is not None:
-        return _apply_on_shards(mesh, deployed, xd, generator)
-    spec = deployed.spec
-    backend = get_backend(spec.backend)
-    for i, layer in enumerate(deployed.layers):
-        lspec = spec.layer(i)
-        xb = bound_input(x, lspec.asp) if spec.bound_input else x
-        y = backend.run(layer, lspec, spec, xb, generator=generator)
-        if spec.base_activation and layer.w_base is not None:
-            y = y + base_branch(xb, layer.w_base, spec.base_activation)
-        x = y
-    return x
+    (``_apply_on_shards``). While torch.profiler records, the call and its
+    stages are spans of ``obs.trace`` (``kan.apply``, ``kan.basis``,
+    ``kan.mac``, ``kan.base``; the crossbars' ``xbar.*``)."""
+    with stage("kan.apply", x.device):
+        mesh, (xd,) = as_dtensors(x)
+        if mesh is not None:
+            return _apply_on_shards(mesh, deployed, xd, generator)
+        spec = deployed.spec
+        backend = get_backend(spec.backend)
+        for i, layer in enumerate(deployed.layers):
+            lspec = spec.layer(i)
+            xb = x
+            if spec.bound_input:
+                with stage("kan.basis"):
+                    xb = bound_input(x, lspec.asp)
+            y = backend.run(layer, lspec, spec, xb, generator=generator)
+            if spec.base_activation and layer.w_base is not None:
+                with stage("kan.base"):
+                    y = y + base_branch(xb, layer.w_base,
+                                        spec.base_activation)
+            x = y
+        return x
 
 
 def _apply_on_shards(mesh, deployed: DeployedKAN, x, generator):

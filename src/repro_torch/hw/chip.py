@@ -27,6 +27,7 @@ from repro_torch.hw import cost_model
 from repro_torch.hw import tiles as tiles_lib
 from repro_torch.hw import variation as var_lib
 from repro_torch.hw.tiles import TileConfig
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,13 +144,18 @@ def chip_forward(v: torch.Tensor, tiled: TiledLayer, cfg: ChipConfig,
 
     v: [..., R] logical word-line values in [0, 1] -> [..., out_dim] f32.
     ``generator`` draws the per-tile readout noise (None: the kernel path).
+    Stages ``xbar.wl_dac``, ``xbar.gather`` and ``kan.mac``
+    (``obs.trace``).
     """
-    vq = cim_lib.quantize_wl(v, cfg.tile.input_bits)
-    v_phys = torch.where(tiled.valid, vq[..., tiled.logical_of_phys.long()],
-                         0.0)
-    y = tiles_lib.tiled_mac(v_phys, tiled.w_phys, cfg.tile, gain=tiled.gain,
-                            generator=generator)
-    return y[..., :out_dim]
+    with obs_trace.stage("xbar.wl_dac"):
+        vq = cim_lib.quantize_wl(v, cfg.tile.input_bits)
+    with obs_trace.stage("xbar.gather"):
+        v_phys = torch.where(tiled.valid,
+                             vq[..., tiled.logical_of_phys.long()], 0.0)
+    with obs_trace.stage("kan.mac"):
+        y = tiles_lib.tiled_mac(v_phys, tiled.w_phys, cfg.tile,
+                                gain=tiled.gain, generator=generator)
+        return y[..., :out_dim]
 
 
 # ---------------------------------------------------------------------------

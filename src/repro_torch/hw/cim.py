@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.splines import true_div
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.obs import trace as obs_trace
 
 GAMMA0_DEFAULT = 0.02
 
@@ -61,26 +62,32 @@ def cim_forward(v: torch.Tensor, w_codes: torch.Tensor, cfg: CIMConfig, *,
     atten_of_logical: [R] per-logical-row attenuation (default: uniform
     mapping, row r at position r % As). ``generator`` draws the stochastic
     partial-sum noise (the reference's ``rng`` key); None adds none.
+    Stages ``xbar.wl_dac`` and ``kan.mac``; inside a traced call on the
+    card the kernel counts ``xbar.rows_iterated`` (``obs.trace``).
     """
     r = v.shape[-1]
-    if atten_of_logical is None:
-        atten_of_logical = row_attenuation(r, cfg, v.device)
-    vq = quantize_wl(v, cfg.input_bits)
-    out = kernel_ops.cim_mac(vq, w_codes, atten_of_logical,
-                             array_size=cfg.array_size,
-                             adc_bits=cfg.adc_bits,
-                             in_scale=cfg.adc_in_scale)
-    if generator is not None:
-        n_arrays = -(-r // cfg.array_size)
-        fs = cfg.array_size * cfg.adc_in_scale
-        lsb = fs / (2 ** cfg.adc_bits - 1)
-        # 8 bit slices recombined with weights 2^k: total noise variance
-        # sigma^2 * n_arrays * sum(4^k) / 8 per output.
-        scale = cfg.sigma_psum * lsb * math.sqrt(
-            n_arrays * sum(4.0 ** k for k in range(8)) / 8.0)
-        noise = torch.randn(out.shape, generator=generator,
-                            device=generator.device)
-        out = out + scale * noise.to(out.device)
+    with obs_trace.stage("xbar.wl_dac"):
+        vq = quantize_wl(v, cfg.input_bits)
+    with obs_trace.stage("kan.mac"):
+        if atten_of_logical is None:
+            atten_of_logical = row_attenuation(r, cfg, v.device)
+        rows = obs_trace.device_counter("xbar.rows_iterated")
+        out = kernel_ops.cim_mac(vq, w_codes, atten_of_logical,
+                                 array_size=cfg.array_size,
+                                 adc_bits=cfg.adc_bits,
+                                 in_scale=cfg.adc_in_scale,
+                                 rows_iterated=rows)
+        if generator is not None:
+            n_arrays = -(-r // cfg.array_size)
+            fs = cfg.array_size * cfg.adc_in_scale
+            lsb = fs / (2 ** cfg.adc_bits - 1)
+            # 8 bit slices recombined with weights 2^k: total noise
+            # variance sigma^2 * n_arrays * sum(4^k) / 8 per output.
+            scale = cfg.sigma_psum * lsb * math.sqrt(
+                n_arrays * sum(4.0 ** k for k in range(8)) / 8.0)
+            noise = torch.randn(out.shape, generator=generator,
+                                device=generator.device)
+            out = out + scale * noise.to(out.device)
     return out
 
 

@@ -32,6 +32,7 @@ import torch
 from repro_torch.hw import cim as cim_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kref
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,13 +131,16 @@ def tiled_mac(v_phys: torch.Tensor, w_phys: torch.Tensor, cfg: TileConfig,
     Returns [..., Op] float32 ~= v @ w with per-tile analog error. Without
     a generator this is the kernel path (``ops.cim_mac_tiled``); with one,
     the noisy plain readout (``readout_codes``), as in the reference.
+    Inside a traced call on the card the kernel counts
+    ``xbar.rows_iterated`` (``obs.trace``).
     """
     if generator is None:
+        rows = obs_trace.device_counter("xbar.rows_iterated")
         acc = kernel_ops.cim_mac_tiled(
             v_phys, w_phys,
             slot_attenuation(v_phys.shape[-1], cfg, v_phys.device),
             gain=gain, array_size=cfg.array_size, adc_bits=cfg.adc_bits,
-            in_scale=cfg.adc_in_scale)
+            in_scale=cfg.adc_in_scale, rows_iterated=rows)
     else:
         acc = readout_codes(v_phys, w_phys, cfg, gain=gain,
                             generator=generator).sum(-2, dtype=torch.int32)

@@ -195,11 +195,13 @@ def kan_spline_fused(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig
 
 
 def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,
-            *, array_size: int, adc_bits: int = 8,
-            in_scale: float = 1.0) -> torch.Tensor:
+            *, array_size: int, adc_bits: int = 8, in_scale: float = 1.0,
+            rows_iterated: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bit-sliced ACIM MAC. v: [..., R] float, w_codes: [R, C] int8
     contiguous, row_atten: [R] float. A ragged final array counts as dead
-    (atten 0) rows. Returns [..., C] f32."""
+    (atten 0) rows. Returns [..., C] f32. The kernel adds the (batch row,
+    row) pairs whose terms it formed to ``rows_iterated`` (an int64 [1]
+    tensor on v's card) if given; the plain versions count nothing."""
     lead, r, c = v.shape[:-1], v.shape[-1], w_codes.shape[-1]
     _same_device("cim_mac", v, w_codes=w_codes, row_atten=row_atten)
     if w_codes.dtype != torch.int8 or w_codes.shape != (r, c):
@@ -220,20 +222,23 @@ def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,
         # the ADC step as the reference computes it: a Python float that
         # the kernel receives rounded to f32
         lsb = float(array_size) * in_scale / float(2 ** adc_bits - 1)
-        y = _cim.cim_mac(vf, w_codes, att, array_size=array_size, lsb=lsb)
+        y = _cim.cim_mac(vf, w_codes, att, array_size=array_size, lsb=lsb,
+                         rows_iterated=rows_iterated)
     return y.reshape(lead + (c,))
 
 
 def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
                   row_atten: torch.Tensor, *,
                   gain: Optional[torch.Tensor] = None, array_size: int,
-                  adc_bits: int = 8, in_scale: float = 1.0) -> torch.Tensor:
+                  adc_bits: int = 8, in_scale: float = 1.0,
+                  rows_iterated: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Multi-tile ACIM MAC (``hw.tiles``). v: [..., R] float PHYSICAL-order
     WL values, w_codes: [R, C] int8 contiguous, row_atten: [R] float, gain:
     optional [R, C] per-cell conductance multipliers (None = ideal cells).
     R must already be a tile multiple (the chip mapper pads rows). Returns
     [..., C] int32: the per-tile readout codes reduced over row tiles (the
-    caller scales by the LSB)."""
+    caller scales by the LSB). ``rows_iterated`` as for ``cim_mac``."""
     lead, r, c = v.shape[:-1], v.shape[-1], w_codes.shape[-1]
     if r % array_size:
         raise ValueError(f"R={r} not a multiple of array_size={array_size} "
@@ -262,7 +267,7 @@ def cim_mac_tiled(v: torch.Tensor, w_codes: torch.Tensor,
     else:
         lsb = float(array_size) * in_scale / float(2 ** adc_bits - 1)
         y = _cim.cim_mac_tiled(vf, w_codes, g, att, array_size=array_size,
-                               lsb=lsb)
+                               lsb=lsb, rows_iterated=rows_iterated)
     return y.reshape(lead + (c,))
 
 

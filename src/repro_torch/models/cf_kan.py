@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import kan, kan_sam
 from repro_torch.core.quant import ASPConfig
 from repro_torch.hw import cim
+from repro_torch.obs.trace import stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,9 +115,12 @@ def multinomial_loss(params: Dict, x: torch.Tensor, cfg: CFKANConfig,
 def _top_k(scores: torch.Tensor, observed: torch.Tensor, k: int
            ) -> torch.Tensor:
     """Indices of the k best unobserved scores; ties go to the lower index
-    (as ``jax.lax.top_k``), which ``torch.topk`` does not promise."""
-    scores = torch.where(observed > 0, -torch.inf, scores)
-    return torch.sort(scores, dim=-1, descending=True, stable=True)[1][..., :k]
+    (as ``jax.lax.top_k``), which ``torch.topk`` does not promise. The
+    ``cf_kan.rank`` stage of ``obs.trace``."""
+    with stage("cf_kan.rank"):
+        scores = torch.where(observed > 0, -torch.inf, scores)
+        return torch.sort(scores, dim=-1, descending=True,
+                          stable=True)[1][..., :k]
 
 
 def recall_at_k(scores: torch.Tensor, held_out: torch.Tensor,

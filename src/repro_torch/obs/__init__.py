@@ -7,7 +7,8 @@ Zero-dependency telemetry in three parts, tied together by a recorder:
                  log-spaced latency buckets, JSON ``snapshot()`` and
                  Prometheus text ``exposition()``.
 * ``trace``    — span-based flight recorder (bounded ring buffer) that
-                 exports Chrome ``trace_event`` JSON for Perfetto.
+                 exports Chrome ``trace_event`` JSON for Perfetto, and the
+                 scoring path's stage spans on torch.profiler's clock.
 * ``profile``  — call wrappers that record the first call per distinct
                  argument-shape key (the twin of the reference's compile
                  events; PyTorch compiles nothing).
@@ -26,8 +27,9 @@ Fleet-health additions (all stdlib-only):
                  (``MetricsHTTPServer``) + periodic JSON snapshots
                  (``PeriodicSnapshotWriter``).
 
-Note: every module here is stdlib-only. ``profile`` is not re-exported,
-as in the reference: import ``repro_torch.obs.profile`` directly.
+Note: every module here but ``trace`` (which opens torch.profiler ranges)
+is stdlib-only. ``profile`` is not re-exported, as in the reference:
+import ``repro_torch.obs.profile`` directly.
 """
 from repro_torch.obs.export import (  # noqa: F401
     MetricsHTTPServer, PeriodicSnapshotWriter)

@@ -15,9 +15,7 @@ a process), not device time. ``flops`` and ``bytes_accessed`` stay
 analysis.
 
 Events flow into a recorder (anything with ``on_compile(event)``, see
-``repro_torch.obs.recorder``). ``roofline_rows(snapshot)`` turns recorded
-FLOPs/bytes gauges into roofline terms against the H100's published peaks;
-on the port's own snapshots it finds none.
+``repro_torch.obs.recorder``).
 
 The engine wraps its callables only when a recorder is enabled; the
 default ``NullRecorder`` path never sees this module.
@@ -115,25 +113,3 @@ def maybe_profile(fn, name: str, recorder):
         return fn
     return JitProfiler(fn, name, recorder)
 
-
-def roofline_rows(snapshot: dict) -> List[dict]:
-    """Per-callable roofline terms from an obs metrics snapshot: the
-    ``compiled_flops{fn=...}`` / ``compiled_bytes{fn=...}`` gauges through
-    ``roofline_terms`` (no collective bytes)."""
-    metrics = snapshot.get("metrics", {})
-    flops: Dict[str, float] = {}
-    nbytes: Dict[str, float] = {}
-    for key, data in metrics.items():
-        if key.startswith("compiled_flops{"):
-            fn = key.split('fn="', 1)[1].split('"', 1)[0]
-            flops[fn] = data.get("value") or 0.0
-        elif key.startswith("compiled_bytes{"):
-            fn = key.split('fn="', 1)[1].split('"', 1)[0]
-            nbytes[fn] = data.get("value") or 0.0
-    from repro_torch.analysis import roofline_terms
-    rows = []
-    for fn in sorted(set(flops) | set(nbytes)):
-        f, b = flops.get(fn, 0.0), nbytes.get(fn, 0.0)
-        rows.append({"fn": fn, "flops": f, "bytes": b,
-                     **roofline_terms(f, b, 0.0)})
-    return rows

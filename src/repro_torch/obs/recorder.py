@@ -1,7 +1,10 @@
 """Engine-facing recording API: NullRecorder (default, no-op) and
 EngineRecorder (metrics + trace + compile profiling in one object).
 
-A copy of ``repro.obs.recorder``: the port imports nothing of ``repro``.
+A copy of ``repro.obs.recorder`` (the port imports nothing of ``repro``),
+except that a phase opens a ``TraceRecorder.span`` (a profiler range too,
+while torch.profiler records) and no cost gauges are set: the port has no
+compiler to estimate FLOPs or bytes.
 
 The serving engine does not talk to registries or ring buffers directly —
 it calls a small semantic vocabulary (``on_submit`` / ``on_admit`` /
@@ -276,8 +279,9 @@ class EngineRecorder(NullRecorder):
     # -- compiles ------------------------------------------------------------
 
     def on_compile(self, event) -> None:
-        """Record a CompileEvent: counter + wall-time histogram + FLOPs /
-        bytes cost gauges + an instant trace marker."""
+        """Record a CompileEvent: counter + wall-time histogram + an instant
+        trace marker (the port has no FLOPs or bytes to record: no
+        compiler estimates them)."""
         self.compile_events.append(event)
         labels = {"fn": event.name}
         self.metrics.counter("compile_total",
@@ -285,15 +289,6 @@ class EngineRecorder(NullRecorder):
         self.metrics.histogram("compile_seconds",
                                "wall time of a first call per shape key",
                                labels=labels).observe(event.wall_s)
-        if event.flops is not None:
-            self.metrics.gauge("compiled_flops",
-                               "FLOPs estimate of the latest first "
-                               "call", labels=labels).set(event.flops)
-        if event.bytes_accessed is not None:
-            self.metrics.gauge("compiled_bytes",
-                               "bytes-accessed estimate of the "
-                               "latest first call",
-                               labels=labels).set(event.bytes_accessed)
         self.trace.instant("compile", args={
             "fn": event.name, "key": event.key,
             "wall_ms": round(event.wall_s * 1e3, 1)})
@@ -322,11 +317,13 @@ class EngineRecorder(NullRecorder):
 
 
 class _PhaseTimer:
-    """Context manager: one phase -> histogram observation + trace span.
-    ``dur_s`` holds the measured duration after exit (the engine reuses the
-    decode-phase duration as the tick's per-token TPOT)."""
+    """Context manager: one phase -> histogram observation + trace span
+    (``TraceRecorder.span``, so a profiler range too while torch.profiler
+    records). ``dur_s`` holds the measured duration after exit
+    (the engine reuses the decode-phase duration as the tick's per-token
+    TPOT)."""
 
-    __slots__ = ("rec", "name", "hist", "dur_s", "_t0")
+    __slots__ = ("rec", "name", "hist", "dur_s", "_t0", "_span")
 
     def __init__(self, rec: EngineRecorder, name: str, hist):
         self.rec = rec
@@ -336,13 +333,12 @@ class _PhaseTimer:
         self._t0 = 0.0
 
     def __enter__(self):
+        self._span = self.rec.trace.span(self.name, cat="tick")
+        self._span.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.dur_s = time.perf_counter() - self._t0
         self.hist.observe(self.dur_s)
-        self.rec.trace.complete(self.name,
-                                self.rec.trace.now_us() - self.dur_s * 1e6,
-                                self.dur_s * 1e6, cat="tick")
-        return False
+        return self._span.__exit__(*exc)

@@ -10,9 +10,6 @@
   KiB in, 128 KiB out, a group of 4.
 * ``FlopCounter`` counts a sharded matmul's FLOPs on the rank's local
   shapes, and a plain matmul's in full.
-* ``obs.profile.roofline_rows`` on a snapshot with gauges returns the
-  reference's rows (its ``roofline_terms`` applied to the H100's
-  constants: the formula is the reference's, the peaks the card's).
 """
 import os
 import subprocess
@@ -24,7 +21,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import analysis  # noqa: E402
-from repro_torch.obs import profile as tprofile  # noqa: E402
 from test_torch_attention import _one_torch_thread  # noqa: E402,F401
 from test_torch_mesh_ranks import SRC  # noqa: E402
 
@@ -136,30 +132,3 @@ def test_collectives_are_counted_as_issued(fake_run):
     # model axis first (16 x 512 -> 16 x 1024), then data (-> 64 x 1024),
     # or the other way round: the last gather's output is the whole tensor
     assert out_bytes[-1] == 64 * 1024 * 4
-
-
-def test_roofline_rows_are_the_references():
-    from repro import analysis as ref_analysis
-    snap = {"metrics": {
-        'compiled_flops{fn="decode_tick"}': {"value": 3.0e12},
-        'compiled_bytes{fn="decode_tick"}': {"value": 2.0e9},
-        'compiled_flops{fn="prefill_len8"}': {"value": 1.0e9},
-        'compiled_bytes{fn="prefill_len8"}': {"value": 5.0e10},
-        "serve_requests_total": {"value": 3}}}
-    rows = tprofile.roofline_rows(snap)
-    assert [r["fn"] for r in rows] == ["decode_tick", "prefill_len8"]
-    consts = ("PEAK_FLOPS", "HBM_BW", "ICI_BW")
-    saved = [getattr(ref_analysis, c) for c in consts]
-    try:
-        for c, v in zip(consts, (analysis.PEAK_FLOPS, analysis.HBM_BW,
-                                 analysis.LINK_BW)):
-            setattr(ref_analysis, c, v)
-        for r in rows:
-            want = ref_analysis.roofline_terms(r["flops"], r["bytes"], 0.0)
-            assert {k: r[k] for k in want} == pytest.approx(want)
-    finally:
-        for c, v in zip(consts, saved):
-            setattr(ref_analysis, c, v)
-    assert rows[0]["dominant"] == "compute"
-    assert rows[1]["dominant"] == "memory"
-    assert tprofile.roofline_rows({"metrics": {}}) == []

@@ -293,7 +293,6 @@ def test_recorded_engine_run_full_stack():
     for phase in ("admit", "prefill", "decode", "host"):
         assert mtr[f'serve_tick_phase_seconds{{phase="{phase}"}}']["count"] > 0
     json.dumps(snap)
-    assert tprofile.roofline_rows(snap) == []    # no cost analysis here
 
     evs = rec.trace.chrome_trace()["traceEvents"]
     assert sum(1 for e in evs if e.get("ph") == "b") == len(reqs)
