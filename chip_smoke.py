@@ -46,7 +46,13 @@ Phases (any failed check raises, and the script exits non-zero):
    and must give bit-identical int32 codes, twice; each row prints the
    share of (batch row, row) pairs whose terms the kernel formed, as its
    second launch counted them (``rows_iterated``), and only the uniform
-   rows count toward its per-apply time. Times come from CUDA events with the
+   rows count toward its per-apply time. ``kan_basis`` (the crossbar
+   backends' dense basis) must equal ``quant.quantized_basis`` bit for bit,
+   twice, at CF-KAN-1's encoder and decoder inputs (its per-apply time)
+   and at CF-KAN-2's (G 15: the same bounded items, a seeded decoder
+   input); its bound counts x, the table and the basis once, and its rows
+   give ``device_ms`` and ``host_ms`` as ``kan_fused``'s do; no one
+   PyTorch call computes it. Times come from CUDA events with the
    L2 cache flushed before every launch (``Timer``); ``kan_fused``'s rows
    and its library call's also give the device's time alone (``device_ms``,
    ``library_device_ms``) and the host's time per call (``host_ms``,
@@ -63,7 +69,8 @@ Phases (any failed check raises, and the script exits non-zero):
    ``cim`` uniform and ``cim`` KAN-SAM (As 256): ``kan_fused`` and
    ``cim_mac`` must be launched; (b) ``kan.deploy`` to ``cim_tiled``
    uniform and KAN-SAM (As 256, Cc 64, gamma0 0.08, sigma 0.05) from the
-   same stats, with the chip report: ``cim_mac_tiled`` must be launched.
+   same stats, with the chip report: ``cim_mac_tiled`` must be launched;
+   ``kan_basis`` must be launched over (a) and (b).
 5. A small-input reference: a narrow CF-KAN served layer by layer on the
    card and on the CPU (plain versions) from one artifact and one input;
    and mamba2 ``SMOKE`` at f32, ``kan_llm`` ``SMOKE`` deployed on
@@ -281,7 +288,10 @@ Phases (any failed check raises, and the script exits non-zero):
    down layers), and every input the run gave it (each layer at each row
    count, in the tick and in prefills, on the row attenuation and gains
    it was given) is held bit for bit against the plain version, each
-   shape timed once. (c)
+   shape timed once; ``kan_basis`` launches in the tick too (at 16 rows,
+   I 1024 and 2816), once for each spied call, and every (layer, rows)
+   input it was given is held against ``quant.quantized_basis`` bit for
+   bit, twice, each shape timed once (off the per-apply time). (c)
    mixtral-8x7b ``CONFIG`` (d 4096, 32/8 heads, 8 experts top-2, d_ff
    14336, window 4096, bf16 compute, f32 params, capacity factor 1.25)
    from a seeded CUDA generator over the deepest cut of its 32 layers that
@@ -437,7 +447,7 @@ import torch.distributed as dist  # noqa: E402
 from torch.distributed.tensor import Replicate  # noqa: E402
 
 from repro_torch.analysis import CollectiveBytes  # noqa: E402
-from repro_torch.configs import cf_kan_1, mamba2_1p3b  # noqa: E402
+from repro_torch.configs import cf_kan_1, cf_kan_2, mamba2_1p3b  # noqa: E402
 from repro_torch.configs import kan_llm, kan_llm_int8  # noqa: E402
 from repro_torch.configs import mistral_nemo_12b, mixtral_8x7b  # noqa: E402
 from repro_torch.configs import recurrentgemma_2b  # noqa: E402
@@ -495,6 +505,8 @@ SOURCES = {
                       "src/repro/kernels/cim_mac.py:111"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:77"),
+    "kan_basis": ("src/repro_torch/kernels/csrc/kan_basis.cu",
+                  "none (the JAX package computes the basis in jnp)"),
 }
 # the LM main path: mamba2-1.3b at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
@@ -717,6 +729,40 @@ def check_kan_fused(timer, label, x, layer, asp):
     return row
 
 
+def kan_basis_held(label, x, hemi, asp):
+    """x: bounded layer input [B, I]; the dense basis of the crossbar
+    backends must equal ``quant.quantized_basis`` bit for bit, twice.
+    Returns the kernel's basis."""
+    got = ops.kan_basis(x, hemi, asp)
+    want = quant.quantized_basis(x, hemi, asp)
+    check(torch.equal(got, want), f"kan_basis {label}: "
+          f"{int((got != want).sum())} entries differ from the plain version")
+    check(torch.equal(ops.kan_basis(x, hemi, asp), got),
+          f"kan_basis {label}: two launches on the same inputs differ")
+    return got
+
+
+def check_kan_basis(timer, label, x, hemi, asp, on_path):
+    """``kan_basis_held``, then the kernel's row. The row counts toward the
+    kernel's per-apply time if ``on_path``."""
+    got = kan_basis_held(label, x, hemi, asp)
+    b, i = x.shape
+    row = dict(shape=label, B=b, I=i, S=asp.n_basis, max_abs_err=0.0,
+               ms=timer.ms(lambda: ops.kan_basis(x, hemi, asp), reps=20))
+    row["host_ms"] = timer.host_ms
+    row["device_ms"] = timer.ms(lambda: ops.kan_basis(x, hemi, asp),
+                                reps=20, spin=True)
+    row["plain_ms"] = timer.ms(lambda: quant.quantized_basis(x, hemi, asp),
+                               reps=5)
+    row["library_ms"] = None
+    row["on_path"] = on_path
+    # x and the table read once, the dense basis written once; a compare
+    # and a select an entry
+    n_bytes = 4.0 * (x.numel() + hemi.numel() + got.numel())
+    row["bound_ms"], row["bound_by"] = bound(2.0 * got.numel(), n_bytes)
+    return row
+
+
 def check_cim_mac(timer, label, v, w, array_size, on_path=None):
     """v: WL values [B, R]; w: codes [R, C]; uniform row attenuation. A
     second launch must give the same output. The row counts toward the
@@ -861,6 +907,27 @@ def cim_tiled_row(timer, label, v, w, g, tile, on_path, att=None):
                on_path=on_path, rows_iterated=int(counter) / (b * r))
     row["bound_ms"], row["bound_by"] = bound(flops, n_bytes)
     return row
+
+
+def kan_basis_rows(timer, xe, xd, enc, dec):
+    """``check_kan_basis`` at the crossbar cells' shapes: CF-KAN-1's encoder
+    and decoder inputs (G 7, the main path's), then CF-KAN-2's (G 15): its
+    encoder reads the same bounded items (both configs bound into [-1, 1]),
+    its decoder a seeded bounded input."""
+    asp_e, asp_d = cf_kan_1.MODEL.asp_enc, cf_kan_1.MODEL.asp_dec
+    rows = [check_kan_basis(timer, "cf-kan-1 enc", xe, enc.hemi, asp_e, True),
+            check_kan_basis(timer, "cf-kan-1 dec", xd, dec.hemi, asp_d, True)]
+    cfg2 = cf_kan_2.MODEL
+    gen = torch.Generator(device=xe.device).manual_seed(0)
+    h2 = kan.bound_input(torch.randn((xe.shape[0], cfg2.hidden),
+                                     generator=gen, device=xe.device),
+                         cfg2.asp_dec)
+    for label, x, asp in (("cf-kan-2 enc", xe, cfg2.asp_enc),
+                          ("cf-kan-2 dec", h2, cfg2.asp_dec)):
+        rows.append(check_kan_basis(timer, label, x,
+                                    quant.hemi_for(asp, x.device), asp,
+                                    False))
+    return rows
 
 
 # --- phase 4: the main path -------------------------------------------------
@@ -3022,13 +3089,17 @@ def router_phase(timer, dev):
 
 
 def launcher_phase(timer, dev):
-    """Phase 14b. Returns the metrics, the ``cim_mac_tiled`` rows (one per
-    shape the run launched it at, in the tick and in prefills) and
-    the kernel's launches in the launcher's run."""
-    tiled_fn, step_fn = ops.cim_mac_tiled, decode.decode_step
+    """Phase 14b. Returns the metrics, the ``cim_mac_tiled`` and
+    ``kan_basis`` rows by kernel (one per shape the run launched each at,
+    in the tick and in prefills) and each kernel's launches in the
+    launcher's run."""
+    tiled_fn, basis_fn = ops.cim_mac_tiled, ops.kan_basis
+    step_fn = decode.decode_step
     rows_n, state = LAUNCH_FLEET_SLOTS, {"tick": False}
     calls = {"tick": 0, "prefill": 0}
+    basis_calls = {"tick": 0, "prefill": 0}
     captured = {}   # (codes, rows, where) -> the first launch's inputs
+    basis_captured = {}   # (table, rows, I, where) -> the first input
 
     def in_tick(*args, **kw):
         state["tick"] = True
@@ -3046,9 +3117,19 @@ def launcher_phase(timer, dev):
             captured[key] = (v2.clone(), w_codes, row_atten.clone(),
                              dict(kw))
         return tiled_fn(v, w_codes, row_atten, **kw)
+
+    def basis_spy(x, hemi, asp):
+        where = "tick" if state["tick"] else "prefill"
+        basis_calls[where] += 1
+        x2 = x.reshape(-1, x.shape[-1])
+        key = (hemi.data_ptr(), x2.shape[0], x2.shape[1], where)
+        if key not in basis_captured:
+            basis_captured[key] = (x2.clone(), hemi, asp)
+        return basis_fn(x, hemi, asp)
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "metrics.json"
-        ops.cim_mac_tiled, decode.decode_step = spy, in_tick
+        ops.cim_mac_tiled, ops.kan_basis = spy, basis_spy
+        decode.decode_step = in_tick
         try:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
@@ -3061,11 +3142,16 @@ def launcher_phase(timer, dev):
             run_s = time.perf_counter() - t0
             launches = ops.launch_counts()
         finally:
-            ops.cim_mac_tiled, decode.decode_step = tiled_fn, step_fn
+            ops.cim_mac_tiled, ops.kan_basis = tiled_fn, basis_fn
+            decode.decode_step = step_fn
         snap = json.loads(path.read_text())["metrics"]
     check(launches["cim_mac_tiled"] == calls["tick"] + calls["prefill"]
           and calls["tick"] > 0, f"launcher fleet: cim_mac_tiled launched "
           f"{launches} times, {calls} in ticks and prefills")
+    check(launches["kan_basis"] == basis_calls["tick"]
+          + basis_calls["prefill"] and basis_calls["tick"] > 0,
+          f"launcher fleet: kan_basis launched {launches['kan_basis']} "
+          f"times, {basis_calls} in ticks and prefills")
     check(launches["kan_fused"] == 0, f"launcher fleet: kan_fused launched "
           f"{launches['kan_fused']} times on cim_tiled")
     keys = list(snap)
@@ -3108,11 +3194,30 @@ def launcher_phase(timer, dev):
     check(len(tick_shapes) == 2 and all(
         r["B"] == rows_n for r in rows if r["shape"].startswith(
             "launcher tick")), f"launcher fleet: tick shapes {tick_shapes}")
+    # every (layer, rows) input the run gave ``kan_basis``, against the
+    # plain basis bit for bit, twice; each shape timed once
+    basis_rows, timed = [], set()
+    for (_, n, i, where), (x, hemi, asp) in basis_captured.items():
+        label = f"launcher {where} [{n}, {i}] G {asp.grid_size}"
+        if (where, n, i, asp) in timed:
+            kan_basis_held(label, x, hemi, asp)
+            continue
+        timed.add((where, n, i, asp))
+        basis_rows.append(check_kan_basis(timer, label, x, hemi, asp,
+                                          False))
+    basis_ticks = sorted((r["B"], r["I"]) for r in basis_rows
+                         if r["shape"].startswith("launcher tick"))
+    check(len(basis_ticks) == 2 and all(b == rows_n for b, _ in basis_ticks),
+          f"launcher fleet: kan_basis tick shapes {basis_ticks}")
     out = dict(report={k: v for k, v in rep.items() if k != "per_replica"},
                run_s=run_s, launches=launches, tick_launches=calls["tick"],
                prefill_launches=calls["prefill"],
                inputs_held=len(captured),
                shapes_timed=len(rows),
+               basis_tick_launches=basis_calls["tick"],
+               basis_prefill_launches=basis_calls["prefill"],
+               basis_inputs_held=len(basis_captured),
+               basis_shapes_timed=len(basis_rows),
                chip_gauges=len(chip_keys) + len(layer_keys),
                canary_gauges={i: len(c) for i, c in canary.items()})
     print(f"phase 14b launcher fleet (kan_llm on cim_tiled, 2 replicas, "
@@ -3120,11 +3225,15 @@ def launcher_phase(timer, dev):
           f"launched {launches['cim_mac_tiled']} times, {calls['tick']} in "
           f"the tick at {rows_n} rows and {calls['prefill']} in "
           f"prefills; {len(captured)} distinct (layer, rows) inputs held bit "
-          f"for bit, {len(rows)} shapes timed; {len(chip_keys)} chip and "
+          f"for bit, {len(rows)} shapes timed; kan_basis launched "
+          f"{launches['kan_basis']} times, {basis_calls['tick']} in the "
+          f"tick, {len(basis_captured)} distinct inputs held bit for bit, "
+          f"{len(basis_rows)} shapes timed; {len(chip_keys)} chip and "
           f"{len(layer_keys)} chip_layer gauges, canary gauges per replica "
           f"{out['canary_gauges']}; drained for health "
           f"{rep['drained_for_health']}, requeued {rep['requeued']}")
-    return out, rows, launches["cim_mac_tiled"]
+    return (out, {"cim_mac_tiled": rows, "kan_basis": basis_rows},
+            {k: launches[k] for k in ("cim_mac_tiled", "kan_basis")})
 
 
 def mixtral_cfg(n_layers):
@@ -5114,7 +5223,8 @@ def main() -> int:
         params, [x_all[:BATCH], x_all[BATCH:2 * BATCH]], cfg_fused)
     rows = {"kan_fused": [check_kan_fused(timer, "enc", xe, enc, asp_e),
                           check_kan_fused(timer, "dec", xd, dec, asp_d)],
-            "cim_mac": [], "cim_mac_tiled": []}
+            "cim_mac": [], "cim_mac_tiled": [],
+            "kan_basis": kan_basis_rows(timer, xe, xd, enc, dec)}
     for uid, (label, x, layer, asp) in enumerate((("enc", xe, enc, asp_e),
                                                   ("dec", xd, dec, asp_d))):
         wl = cim.quantize_wl(quant.quantized_basis(x, layer.hemi, asp)
@@ -5188,7 +5298,8 @@ def main() -> int:
           f"{launches_b}")
     launches = {"kan_fused": launches_a["kan_fused"],
                 "cim_mac": launches_a["cim_mac"],
-                "cim_mac_tiled": launches_b["cim_mac_tiled"]}
+                "cim_mac_tiled": launches_b["cim_mac_tiled"],
+                "kan_basis": launches_a["kan_basis"] + launches_b["kan_basis"]}
     for kname in launches:
         check(launches[kname] > 0, f"{kname} was not launched on the path")
     for k, d in tiled.items():
@@ -5416,13 +5527,16 @@ def main() -> int:
     print("phase 14a: " + json.dumps(r14a))
     print(f"phase 14a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    r14b, crows14, launches14b = launcher_phase(timer, dev)
-    rows["cim_mac_tiled"].extend(crows14)
-    launches["cim_mac_tiled"] += launches14b
+    r14b, rows14b, launches14b = launcher_phase(timer, dev)
+    for k, krows in rows14b.items():
+        rows[k].extend(krows)
+        launches[k] += launches14b[k]
     print("phase 14b: " + json.dumps(r14b))
     print(f"phase 14b: {time.perf_counter() - t0:.1f} s")
-    for r in krows14 + crows14:
-        print(f"kernel {'cim_mac_tiled' if 'R' in r else 'kan_fused'} "
+    for kname, r in ([("kan_fused", r) for r in krows14]
+                     + [(k, r) for k, krows in rows14b.items()
+                        for r in krows]):
+        print(f"kernel {kname} "
               f"{r['shape']}: max|err| {r['max_abs_err']:.3g}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']}, bound {r['bound_ms']:.4f} by "

@@ -438,8 +438,9 @@ class CimBackend(KANBackend):
 
     def run(self, layer, lspec, spec, x, generator=None):
         from repro_torch.hw import cim as cim_lib
+        from repro_torch.kernels import ops
         with stage("kan.basis"):
-            basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+            basis = ops.kan_basis(x.contiguous(), layer.hemi, lspec.asp)
             # views (no device work), inside a stage like every op
             v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
             w = layer.codes.reshape(lspec.n_rows, lspec.out_dim)
@@ -491,8 +492,9 @@ class CimTiledBackend(KANBackend):
 
     def run(self, layer, lspec, spec, x, generator=None):
         from repro_torch.hw import chip as chip_lib
+        from repro_torch.kernels import ops
         with stage("kan.basis"):
-            basis = quant.quantized_basis(x, layer.hemi, lspec.asp)
+            basis = ops.kan_basis(x.contiguous(), layer.hemi, lspec.asp)
             v = basis.reshape(basis.shape[:-2] + (lspec.n_rows,))
         y = chip_lib.chip_forward(v, layer.tiles, self._chip_cfg(spec),
                                   lspec.out_dim, generator=generator)

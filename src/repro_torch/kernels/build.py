@@ -53,6 +53,8 @@ SIGNATURES = {
                        + (_P,),
     # out, blocks, iters, stream: the rate of ssd_scan's MMA building block
     "ssd_mma_probe": (_P, _I, _I, _P),
+    # x, hemi, out, n_inputs, S, k1, ld, n_levels, half, x_min, step, stream
+    "kan_basis_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 RESTYPES = {"kan_fused_scratch": _L, "cim_mac_scratch": _L}
 

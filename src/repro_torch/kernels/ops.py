@@ -37,13 +37,15 @@ from repro_torch.core import quant, splines
 from repro_torch.core.quant import ASPConfig
 from repro_torch.dist.sharding import as_dtensors, placements_of
 from repro_torch.kernels import cim_mac as _cim
+from repro_torch.kernels import kan_basis as _kb
 from repro_torch.kernels import kan_fused as _kf
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
 
 _KERNELS = {"kan_fused": _kf.kan_fused, "cim_mac": _cim.cim_mac,
-            "cim_mac_tiled": _cim.cim_mac_tiled, "ssd_scan": _ssd.ssd_scan}
+            "cim_mac_tiled": _cim.cim_mac_tiled, "ssd_scan": _ssd.ssd_scan,
+            "kan_basis": _kb.kan_basis}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -192,6 +194,36 @@ def kan_spline_fused(x: torch.Tensor, coeffs: torch.Tensor, asp: ASPConfig
     if mesh is not None:
         return _kan_spline_fused_mesh(mesh, x, coeffs, asp)
     return _KanSplineFused.apply(x, coeffs, asp)
+
+
+def kan_basis(x: torch.Tensor, hemi: torch.Tensor, asp: ASPConfig
+              ) -> torch.Tensor:
+    """Dense quantised basis of bounded inputs, the crossbar backends' word-
+    line values: x [..., I] f32 contiguous, hemi the config's SH-LUT
+    [ceil(L/2), K+1] f32 contiguous. Returns [..., I, G+K] f32, bit for bit
+    ``quant.quantized_basis(x, hemi, asp)``, which is the CPU path. Only f32
+    inputs are taken: the crossbar paths (CF-KAN, the KAN-FFN LLM) bound
+    their inputs in f32, and another dtype would quantise to other codes."""
+    _same_device("kan_basis", x, hemi=hemi)
+    if x.dtype != torch.float32 or hemi.dtype != torch.float32:
+        raise ValueError(f"kan_basis: x and hemi must be torch.float32, got "
+                         f"{x.dtype} and {hemi.dtype}")
+    if x.dim() < 1:
+        raise ValueError("kan_basis: x must have an input dim")
+    half = (asp.levels_per_interval + 1) // 2
+    if hemi.shape != (half, asp.n_taps):
+        raise ValueError(f"kan_basis: SH-LUT {tuple(hemi.shape)} is not "
+                         f"[ceil(L/2), K+1] = [{half}, {asp.n_taps}]")
+    if not (x.is_contiguous() and hemi.is_contiguous()):
+        raise ValueError("kan_basis: x and hemi must be contiguous")
+    xf = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        y = quant.quantized_basis(xf, hemi, asp)
+    elif x.device.type == "meta":
+        y = _shape_ops().kan_basis_shape(xf, asp.n_basis)
+    else:
+        y = _kb.kan_basis(xf, hemi, asp=asp)
+    return y.reshape(x.shape + (asp.n_basis,))
 
 
 def cim_mac(v: torch.Tensor, w_codes: torch.Tensor, row_atten: torch.Tensor,

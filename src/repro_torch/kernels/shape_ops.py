@@ -1,13 +1,15 @@
-"""Shape-only stand-ins of the four kernels, for tensors on the ``meta``
+"""Shape-only stand-ins of the five kernels, for tensors on the ``meta``
 device (the dry run, ``launch.dryrun``, which builds every cell from meta
 tensors and allocates nothing).
 
 Each is a ``torch.library`` custom op whose only working implementation is
 its fake one, which the dispatcher runs for meta tensors: on a CPU or CUDA
 tensor it raises, so no real run can reach one. ``kernels.ops`` calls them for a meta input
-in place of the plain version (CPU) or the CUDA kernel (card). Each also
-has a FLOP formula for ``torch.utils.flop_counter`` (the counting mode of
-``repro_torch.analysis``): the operations the kernel does for these shapes.
+in place of the plain version (CPU) or the CUDA kernel (card). Each that
+computes a product also has a FLOP formula for ``torch.utils.flop_counter``
+(the counting mode of ``repro_torch.analysis``): the operations the kernel
+does for these shapes. ``kan_basis`` has none, as its plain version's
+elementwise ops count none.
 Importing this module registers the ops; ``kernels.ops`` imports it on the
 first meta call.
 """
@@ -43,6 +45,18 @@ def _kan_fused_flops(x_shape, codes_shape, *args, **kwargs) -> int:
     """The basis-times-codes product, 2 B I S O."""
     i, s, o = codes_shape
     return 2 * x_shape[0] * i * s * o
+
+
+@torch.library.custom_op("repro_torch::kan_basis_shape", mutates_args=())
+def kan_basis_shape(x: Tensor, n_basis: int) -> Tensor:
+    """``kan_basis`` on x [M, I]: the dense basis [M, I, n_basis] f32."""
+    _real_data("kan_basis_shape")
+
+
+@kan_basis_shape.register_fake
+def _(x, n_basis):
+    return x.new_empty((x.shape[0], x.shape[1], n_basis),
+                       dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::cim_mac_shape", mutates_args=())

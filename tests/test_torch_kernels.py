@@ -15,6 +15,14 @@ kernels themselves against those plain versions on the card.
   plain version's formula evaluated in float64: at I*S = 163,840 slots two
   f32 summation orders (the plain version's own among them) already differ
   from the exact sum by up to about the bar itself.
+* ``kan_basis`` (the crossbar backends' dense quantised basis): on the CPU
+  the wrapper is ``quant.quantized_basis``, on ``meta`` a shape-only
+  stand-in, and it refuses what the kernel does not take; the crossbar
+  backends take their basis from it. On the card the kernel equals
+  ``quant.quantized_basis`` bit for bit (``torch.equal``) at the crossbar
+  cells' and the LM engine's shapes, on cell edges and knots, past both
+  ends of the range, on the SH-LUT's reflection seam and at L = 1, and a
+  crossbar layer in ``kan.apply`` launches it once.
 """
 import types
 
@@ -23,10 +31,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import quant as tq  # noqa: E402
+from repro_torch.core import kan as tk, quant as tq  # noqa: E402
 from repro_torch.kernels import kan_fused as tkf  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
 from test_torch_attention import _one_torch_thread  # noqa: E402,F401
+import test_torch_stages as tst  # noqa: E402
 
 KAN_SHAPES = [(8, 8, 8), (37, 23, 50), (128, 64, 128), (5, 130, 3)]
 # (G, K, (B, I, O)): every grid on every shape in cubic order, and the
@@ -44,6 +53,21 @@ CF_KAN_1_SHAPES = {"enc": (256, 16384, 108), "dec": (256, 108, 16384)}
 # (G, K, n_bits) past cubic splines (K+1 = 5, 6 taps) and past 8-bit inputs
 # (L = 512 levels per interval): the kernel sizes its tap table from these
 WIDE_CONFIGS = [(7, 4, 8), (7, 5, 8), (1, 3, 9)]
+# kan_basis, (G, K, LD cap): the crossbar cells' grids at their L (32 at
+# G 7, 16 at G 15), the KAN-FFN LLM's G 8, L = 1 (LD 0, one hemi row), and
+# orders 0 and 5
+BASIS_CONFIGS = [(7, 3, None), (15, 3, None), (8, 3, None), (7, 3, 0),
+                 (5, 0, None), (7, 5, None)]
+# (rows, I, G): the crossbar cells' encoder and decoder inputs (CF-KAN-1 at
+# G 7, CF-KAN-2 at G 15), the LM engine's cim_tiled tick at G 8, and I *
+# (G+K) not a multiple of the kernel's 4-float stores (13 * 10, 101 * 18)
+# the crossbar cells' encoder and decoder inputs; 2816 and 1024 wide at 16
+# rows; the kan_llm engine tick's up and down inputs, [16, 256] and
+# [16, 85]; ragged shapes
+BASIS_CARD_SHAPES = [(256, 16384, 7), (256, 16384, 15), (256, 108, 7),
+                     (256, 101, 15), (16, 2816, 8), (16, 1024, 8),
+                     (16, 256, 8), (16, 85, 8),
+                     (5, 13, 7), (3, 101, 15), (1, 1, 7)]
 
 
 @pytest.fixture(scope="module")
@@ -195,6 +219,106 @@ def test_wrappers_reject_bad_inputs():
                      torch.from_numpy(att[:9]), array_size=4)
 
 
+def _basis_cfg(g, k, ld_cap=None):
+    cfg = tq.ASPConfig(grid_size=g, order=k, ld_cap=ld_cap)
+    return cfg, tq.hemi_for(cfg, "cpu")
+
+
+def _basis_edges(cfg):
+    """x on every cell edge (a knot every L of them) and an ulp either side,
+    mid-cell on both sides of the SH-LUT's reflection seam (local =
+    ceil(L/2) - 1 and ceil(L/2)) in every segment, and past both ends of the
+    range, out to +-inf. Checks that the seam's codes are among them."""
+    edges = (cfg.x_min + np.arange(-2, cfg.n_levels + 3) * cfg.step
+             ).astype(np.float32)
+    L = cfg.levels_per_interval
+    half = (L + 1) // 2
+    locals_ = [loc for loc in (half - 1, half) if loc < L]
+    seam = (cfg.x_min + np.array([s * L + loc + 0.5
+                                  for s in range(cfg.grid_size)
+                                  for loc in locals_]) * cfg.step
+            ).astype(np.float32)
+    beyond = np.array([-np.inf, -1e30, -3.0, -1.0, 1.0, 1.5, 1e30, np.inf],
+                      dtype=np.float32)
+    x = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                        np.nextafter(edges, np.float32(-np.inf)), seam,
+                        beyond])
+    local = tq.powergap_decode(tq.quantize_input(torch.from_numpy(seam), cfg),
+                               cfg)[1]
+    assert set(local.tolist()) == set(locals_)
+    return torch.from_numpy(x)
+
+
+def _basis_x(shape, seed):
+    """Bounded inputs, as ``kan.bound_input`` gives the crossbar backends."""
+    rng = np.random.default_rng(seed)
+    return torch.tanh(torch.from_numpy(
+        rng.normal(0.0, 1.5, shape).astype(np.float32)))
+
+
+@pytest.mark.parametrize("shape", [(4, 13), (2, 3, 7), (1, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("g,k,ld_cap", BASIS_CONFIGS)
+def test_kan_basis_plain_is_quantized_basis(g, k, ld_cap, shape):
+    """On the CPU the wrapper is the plain version, leading dims and all,
+    on random inputs and on the edge values."""
+    cfg, hemi = _basis_cfg(g, k, ld_cap)
+    for x in (_basis_x(shape, seed=g + k), _basis_edges(cfg)):
+        got = tops.kan_basis(x, hemi, cfg)
+        assert got.shape == x.shape + (cfg.n_basis,)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, tq.quantized_basis(x, hemi, cfg))
+
+
+@pytest.mark.parametrize("shape", [(4, 13), (2, 3, 7), (0, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("g", [7, 15])
+def test_kan_basis_meta_stand_in(g, shape):
+    cfg, hemi = _basis_cfg(g, 3)
+    got = tops.kan_basis(torch.empty(shape, device="meta"),
+                         hemi.to("meta"), cfg)
+    assert got.device.type == "meta" and got.dtype == torch.float32
+    assert got.shape == shape + (cfg.n_basis,)
+
+
+@pytest.mark.parametrize("case", ["bf16", "f64", "hemi_f64", "strided",
+                                  "hemi_strided", "devices", "hemi_shape",
+                                  "scalar"])
+def test_kan_basis_rejects_bad_inputs(case):
+    cfg, hemi = _basis_cfg(7, 3)
+    x = _basis_x((4, 6), seed=0)
+    bad = {"bf16": (x.to(torch.bfloat16), hemi),
+           "f64": (x.double(), hemi),
+           "hemi_f64": (x, hemi.double()),
+           "strided": (x.t(), hemi),
+           "hemi_strided": (x, hemi.t().contiguous().t()),
+           "devices": (x, hemi.to("meta")),
+           "hemi_shape": (x, hemi[:-1]),
+           "scalar": (x[0, 0], hemi)}[case]
+    with pytest.raises(ValueError):
+        tops.kan_basis(*bad, cfg)
+
+
+@pytest.mark.parametrize("backend", ["cim", "cim_tiled"])
+def test_crossbar_backends_take_the_basis_from_kan_basis(monkeypatch,
+                                                         backend):
+    """Each crossbar layer of ``kan.apply`` gets its word-line values from
+    one ``ops.kan_basis`` call on its bounded input."""
+    dep = tst._deployed(backend)
+    calls = []
+    real = tops.kan_basis
+
+    def spy(x, hemi, asp):
+        calls.append((x.shape, asp))
+        return real(x, hemi, asp)
+    monkeypatch.setattr(tops, "kan_basis", spy)
+    x = tst._users(5)
+    tk.apply(dep, x)
+    spec = dep.spec
+    assert calls == [((5, spec.dims[i]), spec.layer(i).asp)
+                     for i in range(spec.n_layers)]
+
+
 # --- the CUDA kernels on the card -------------------------------------------
 
 @pytest.mark.cuda
@@ -285,3 +409,48 @@ def test_kan_fused_kernel_wide_configs(cuda, g, k, n_bits, shape):
     want = _kan_exact(xt, ct, st, cfg)
     np.testing.assert_allclose(got.double().cpu().numpy(),
                                want.cpu().numpy(), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,g", BASIS_CARD_SHAPES,
+                         ids=lambda v: str(v))
+def test_kan_basis_kernel_equals_plain(cuda, b, i, g):
+    cfg, hemi = _basis_cfg(g, 3)
+    x = _basis_x((b, i), seed=b + i + g).to(cuda)
+    hemi = hemi.to(cuda)
+    before = tops.launch_counts()["kan_basis"]
+    got = tops.kan_basis(x, hemi, cfg)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["kan_basis"] == before + 1
+    assert torch.equal(got, tq.quantized_basis(x, hemi, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,k,ld_cap", BASIS_CONFIGS)
+def test_kan_basis_kernel_edges(cuda, g, k, ld_cap):
+    """Knots, cell edges and an ulp either side, the reflection seam, and
+    inputs past both ends (clamped), bit for bit; as one row and as rows
+    of 3."""
+    cfg, hemi = _basis_cfg(g, k, ld_cap)
+    x = _basis_edges(cfg).to(cuda)
+    hemi = hemi.to(cuda)
+    n = x.numel() - x.numel() % 3
+    for xs in (x.reshape(1, -1), x[:n].reshape(-1, 3)):
+        got = tops.kan_basis(xs, hemi, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tq.quantized_basis(xs, hemi, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cim", "cim_tiled"])
+def test_crossbar_apply_launches_kan_basis(cuda, monkeypatch, backend):
+    """One launch a crossbar layer in ``kan.apply``, and the same output as
+    the apply with the plain basis."""
+    dep = tst._deployed(backend, cuda)
+    x = tst._users(37, cuda)
+    before = tops.launch_counts()["kan_basis"]
+    got = tk.apply(dep, x)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["kan_basis"] == before + len(dep.layers)
+    monkeypatch.setattr(tops, "kan_basis", tq.quantized_basis)
+    assert torch.equal(got, tk.apply(dep, x))

@@ -198,7 +198,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert path.parent == tmp_path and path.name.startswith("libkernels_")
     assert path == build.library_path()
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
-        "kan_fused.cu", "cim_mac.cu", "cim_mac_tiled.cu", "ssd_scan.cu"}
+        "kan_fused.cu", "cim_mac.cu", "cim_mac_tiled.cu", "ssd_scan.cu",
+        "kan_basis.cu"}
     if build.shutil.which("nvcc") is None and not Path(
             "/usr/local/cuda/bin/nvcc").exists():
         build.load.cache_clear()
