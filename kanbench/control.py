@@ -8,13 +8,16 @@ card's start-up once):
 
 ``--seeds``: the program as the configuration states it (the lower
 readings). The controls, each held to the reference at the configuration's
-precision (the upper readings): ``--control-seeds``, the program with its
-coefficient codes one precision below the configuration's (int4 for int8,
-the program's own ``coeff_bits`` path); ``--taps-seeds`` (``fused`` cells),
-the reference in the program's place with its taps one precision below the
-configuration's (bf16 for f32), as a contraction that rounds its taps
-would serve. Each run is a run of ``kanbench.run`` with a short window; it
-prints the compared numbers. The benchmark's own runs never run a control.
+precision (the upper readings): ``--control-seeds``, on CF-KAN cells the
+program with its coefficient codes one precision below the
+configuration's (int4 for int8, the program's own ``coeff_bits`` path),
+on LM cells the engine serving the weights rounded to fp8 e4m3 (one
+precision below the configuration's bf16); ``--taps-seeds`` (``fused``
+cells), the reference in the program's place with its taps one precision
+below the configuration's (bf16 for f32), as a contraction that rounds its
+taps would serve. Each run is a run of ``kanbench.run`` (or
+``kanbench.lm_run``) with a short window; it prints the compared numbers.
+The benchmark's own runs never run a control.
 """
 from __future__ import annotations
 
@@ -42,7 +45,11 @@ def readings(cell: resolve.Cell, seeds, seconds: float, control=None,
              check_rows=bench.CHECK_ROWS):
     """One record per seed: the compared numbers and the run's size.
     ``control`` is None (the program as configured), ``"codes"`` or
-    ``"taps"``."""
+    ``"taps"`` (on an LM cell any control is the fp8 weights)."""
+    if cell.model.get("kind", "cf_kan") == "lm":
+        yield from _lm_readings(cell, seeds, seconds, control, device, root,
+                                check_every)
+        return
     bits = control_bits(cell.model) if control == "codes" else None
     taps = _BELOW[cell.model["taps"]] if control == "taps" else None
     for seed in seeds:
@@ -56,8 +63,29 @@ def readings(cell: resolve.Cell, seeds, seconds: float, control=None,
                "correct": res["correct"],
                **{k: v["value"] for k, v in res["checks"].items()},
                "checked_batches": res["_batches"]["checked"],
-               "checked_rows": min(check_rows, cell.traffic["batch"]),
+               "checked_rows": min(check_rows, cell.traffic.get(
+                   "batch", cell.traffic.get("max_batch", 0))),
                "window_batches": res["_batches"]["window"],
+               "seconds": time.perf_counter() - t0}
+
+
+def _lm_readings(cell, seeds, seconds, control, device, root, check_every):
+    from kanbench import lm_run
+    kind = "fp8" if control else None
+    for seed in seeds:
+        t0 = time.perf_counter()
+        res = lm_run.run(cell, seed, seconds, False, device=device,
+                         control=kind, root=root, check_every=check_every)
+        info = res["_batches"]
+        yield {"cell": cell.name, "seed": seed, "control": kind,
+               "weights": "float8_e4m3fn" if kind else "float32",
+               "correct": res["correct"],
+               **{k: v["value"] for k, v in res["checks"].items()},
+               "checked_requests": info["checked"],
+               "checked_steps": info["steps_checked"],
+               "completed": info["completed"],
+               "share_past": info["share_past"],
+               "window_steps": info["window"],
                "seconds": time.perf_counter() - t0}
 
 

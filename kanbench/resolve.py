@@ -1,9 +1,14 @@
 """Find everything a cell needs by the names in ``BENCHMARK.json``: its
-configuration (the file the entry names), its traffic mix
-(``kanbench/traffic/<traffic>.json``), its correctness limits
+configuration (the file the entry names; its ``kind``, ``cf_kan`` where it
+has none, or ``lm``, picks the system and the window, and an ``lm`` file
+names its plain reference), its traffic mix
+(``kanbench/traffic/<traffic>.json``; a CF-KAN mix with ``"loop":
+"open"`` runs the open loop), its correctness limits
 (``kanbench/cells/<cell>.json``) and the readers of the per-layer metrics
-that list it (``kanbench/metrics/<metric>.py``). A new cell, mix or metric
-is a new file and an entry; no file here changes."""
+that list it (``kanbench/metrics/<metric>.py``; a metric split by the end
+-to-end metric it moves, ``<metric>.<part>``, with no file of its own is
+read by ``<metric>``'s). A new cell, mix, metric, or configuration of
+either kind is new files and entries; no file here changes."""
 from __future__ import annotations
 
 import dataclasses
@@ -54,8 +59,11 @@ def cell(root: Path, name: str) -> Cell:
 
 
 def reader(root: Path, metric: str) -> Callable:
-    """The ``read(ctx)`` function of a per-layer metric's file."""
+    """The ``read(ctx)`` function of a per-layer metric's file: its own,
+    or for ``<metric>.<part>`` without one, ``<metric>``'s."""
     path = root / "kanbench" / "metrics" / f"{metric}.py"
+    if not path.exists() and "." in metric:
+        return reader(root, metric.rsplit(".", 1)[0])
     spec = importlib.util.spec_from_file_location(
         "kanbench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)

@@ -3,17 +3,24 @@
     python3 -m kanbench.run --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-From the root of a checkout. Set-up makes the weights and a pool of users
-on the card from the seed, deploys the program's artifact on the cell's
-backend and warms up the cell's shapes. The window then scores batches of
-users back to back for ``--seconds`` (one batch in flight): the program's
-``kan.apply`` on the artifact, its ranking to the top k unseen items, the
-ids copied to the host. Batches drawn from the seed keep what the program
-produced; once the window has closed and the program's artifact is freed,
-the plain reference in ``kanbench/reference`` scores the same users and
-decides ``correct``. ``--trace 1`` traces a few batches of the window with
-``torch.profiler`` and reports the per-layer metrics instead of the
-end-to-end ones.
+From the root of a checkout. The configuration's ``kind`` picks the
+system: ``cf_kan`` (the default) runs here; ``lm`` runs the program's
+serving engine (``kanbench/lm_run.py``).
+
+CF-KAN: set-up makes the weights and a pool of users on the card from the
+seed, deploys the program's artifact on the cell's backend and warms up
+the cell's shapes. The window then scores batches of users for
+``--seconds``, one batch in flight: the program's ``kan.apply`` on the
+artifact, its ranking to the top k unseen items, the ids copied to the
+host. Under a closed loop (the default) batches of the traffic's size run
+back to back; under an open loop (``"loop": "open"``) users fall due on a
+Poisson schedule drawn from the seed, and each batch takes every user
+already due, up to ``max_batch``. Batches drawn from the seed keep what
+the program produced; once the window has closed and the program's
+artifact is freed, the plain reference in ``kanbench/reference`` scores
+the same users and decides ``correct``. ``--trace 1`` traces a few
+batches of the window with ``torch.profiler`` and reports the per-layer
+metrics instead of the end-to-end ones.
 """
 from __future__ import annotations
 
@@ -35,12 +42,12 @@ from pathlib import Path  # noqa: E402
 from typing import Dict, List, Optional  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-# modules that no run may load: JAX and the JAX package this port mirrors
-FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 TOP_K = 20              # ids a user gets, as the program's Recall@20 ranks
 POOL_BATCHES = 8        # distinct batches of users the window cycles over
 WARMUP_BATCHES = 3
 CHECK_ROWS = 256        # users of a checked batch compared with the reference
+OPEN_SLACK_S = 30.0     # an open loop's schedule runs this far past the window
+BACKLOG_EVERY_S = 1.0   # an open loop reads its backlog this often
 
 
 def _setup_paths() -> None:
@@ -60,7 +67,8 @@ _setup_paths()
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from kanbench import check, generator, resolve, system, trace  # noqa: E402
+from kanbench import (check, forbidden_modules, generator,  # noqa: E402
+                      resolve, system, trace)
 from kanbench.reference import cf_kan as ref_cf_kan  # noqa: E402
 from kanbench.reference import crossbar as ref_crossbar  # noqa: E402
 
@@ -77,12 +85,6 @@ class Context:
     model: Dict
     traffic: Dict
     window_peak_bytes: int
-
-
-def forbidden_modules() -> List[str]:
-    """Loaded modules whose top-level name is one of ``FORBIDDEN``."""
-    return sorted({m for m in sys.modules
-                   if m.split(".", 1)[0] in FORBIDDEN})
 
 
 def reference_hardware(traffic: Dict, seed: int) -> ref_cf_kan.Hardware:
@@ -140,9 +142,9 @@ class Window:
     def x(self, j: int) -> torch.Tensor:
         return self.batches[j % self.batches.shape[0]]
 
-    def step(self, j: int, spans: bool) -> None:
-        """One batch: scores, ranking, ids on the host."""
-        x = self.x(j)
+    def score(self, x: torch.Tensor, spans: bool) -> torch.Tensor:
+        """One batch through the timed path: scores, ranking, the ids on
+        the host (``host_ids``' first rows) when it returns; its scores."""
         cuda = x.device.type == "cuda"
         rng = (torch.profiler.record_function if spans
                else lambda _: contextlib.nullcontext())
@@ -157,13 +159,18 @@ class Window:
                 scores = self.apply(self.deployed, x)
             with rng(trace.SPANS[1]):
                 ids = system.rank(scores, x, self.k)
-            self.host_ids.copy_(ids, non_blocking=cuda)
+            self.host_ids[:x.shape[0]].copy_(ids, non_blocking=cuda)
             if cuda:
                 ev[1].record()
                 ev[1].synchronize()
                 self.events.append(ev)
             else:
                 self.events.append(time.perf_counter() - t0)
+        return scores
+
+    def step(self, j: int, spans: bool) -> None:
+        """One batch of the pool, kept where it is checked."""
+        scores = self.score(self.x(j), spans)
         if (j + self.offset) % self.every == 0:
             self.kept[j] = (scores.index_select(0, self.rows),
                             self.host_ids[self.rows_host])
@@ -171,6 +178,127 @@ class Window:
     def latencies_ms(self) -> List[float]:
         return [e[0].elapsed_time(e[1]) if isinstance(e, tuple)
                 else 1e3 * e for e in self.events]
+
+    def warm_up(self, spans: bool = False) -> None:
+        """The cell's shapes, once (with ``spans``: one batch, for the
+        tracer's own set-up)."""
+        for j in range(1 if spans else WARMUP_BATCHES):
+            self.step(-1 - j, spans=spans)
+
+    def checked_input(self, j: int) -> torch.Tensor:
+        """The inputs of batch ``j``'s kept users."""
+        return self.x(j).index_select(0, self.rows)
+
+    def traced_input(self, j: int):
+        """Batch ``j``'s inputs and a key shared by batches of the same
+        inputs (the pool's batch)."""
+        return j % self.batches.shape[0], self.x(j)
+
+
+class OpenWindow(Window):
+    """The open loop: users fall due on a Poisson schedule at ``rate``
+    users a second, drawn from the seed (user u is the pool's row u modulo
+    its size). When the previous batch's ids are on the host, the server
+    takes every user already due, up to ``max_batch``, and scores them as
+    the closed loop does; where none is due it waits for the next. A user's
+    latency runs from when it was due to when its ids are on the host. A
+    checked batch keeps all its users. Every ``BACKLOG_EVERY_S`` of the
+    window it reads the backlog (users due, not yet taken) as it takes a
+    batch; the slope fitted to those readings says whether it grows."""
+
+    def __init__(self, deployed, apply, pool: torch.Tensor, seed: int,
+                 check_every: int, rate: float, max_batch: int,
+                 horizon_s: float):
+        self.deployed, self.apply, self.pool = deployed, apply, pool
+        self.k, self.every, self.max_batch = TOP_K, check_every, max_batch
+        self.offset = random.Random(seed).randrange(self.every)
+        self.kept: Dict[int, tuple] = {}
+        self.events: List = []
+        self.n = 0
+        n = int(rate * horizon_s * 1.25) + 1000
+        gaps = np.random.default_rng(seed).exponential(1.0 / rate, size=n)
+        self.due = np.cumsum(gaps)             # s after the window opens
+        self.done = np.full(n, np.nan)         # due to ids on the host
+        self.dequeued = np.full(n, np.nan)     # due to taken by the server
+        self.next = 0                          # first user not yet taken
+        self.limit = n                         # users that may be taken
+        self.t0 = 0.0
+        self.users: List[tuple] = []           # (first user, n) by batch
+        self.backlog: List[tuple] = []         # (s, users waiting)
+        self.next_read = BACKLOG_EVERY_S
+        dev = pool.device
+        self.host_ids = torch.empty((max_batch, self.k), dtype=torch.int64,
+                                    pin_memory=dev.type == "cuda")
+
+    def rows(self, first: int, n: int) -> torch.Tensor:
+        p = self.pool.shape[0]
+        lo = first % p
+        if lo + n <= p:
+            return self.pool[lo:lo + n]
+        return torch.cat([self.pool[lo:], self.pool[:lo + n - p]])
+
+    def warm_up(self, spans: bool = False) -> None:
+        """Every batch size the loop can take, once (with ``spans``: a full
+        batch, for the tracer's own set-up)."""
+        for n in ([self.max_batch] if spans
+                  else range(1, self.max_batch + 1)):
+            self.score(self.rows(0, n), spans)
+
+    def open(self, t0: float) -> None:
+        self.t0 = t0
+
+    def step(self, j: int, spans: bool) -> None:
+        i = self.next
+        if i >= self.limit:
+            raise RuntimeError("the open loop's schedule ran out")
+        now = time.perf_counter()
+        while now - self.t0 < self.due[i]:
+            now = time.perf_counter()
+        rel = now - self.t0
+        n = min(int(np.searchsorted(self.due, rel, side="right")),
+                self.limit) - i
+        if rel >= self.next_read:
+            self.backlog.append((rel, n))
+            self.next_read += BACKLOG_EVERY_S
+        n = min(n, self.max_batch)
+        scores = self.score(self.rows(i, n), spans)
+        done = time.perf_counter() - self.t0
+        self.dequeued[i:i + n] = rel - self.due[i:i + n]
+        self.done[i:i + n] = done - self.due[i:i + n]
+        self.next = i + n
+        self.users.append((i, n))
+        if (j + self.offset) % self.every == 0:
+            self.kept[j] = (scores, self.host_ids[:n].clone())
+
+    def close(self, window_s: float, j: int) -> Dict[str, float]:
+        """End the window at ``window_s``: no user due later is taken.
+        Serve the backlog (users due but not yet taken) and return what
+        the window's users saw."""
+        served, n_events = self.next, len(self.events)
+        self.limit = int(np.searchsorted(self.due, window_s, side="right"))
+        self.next_read = math.inf
+        while self.next < self.limit:
+            self.step(j, spans=False)
+            j += 1
+        due = self.limit
+        return {"served": served, "backlog": due - served, "due": due,
+                "n_events": n_events, "user_ms": 1e3 * self.done[:due],
+                "dequeue_ms": 1e3 * self.dequeued[:due],
+                "backlog_slope": self.backlog_slope()}
+
+    def backlog_slope(self) -> float:
+        """Users a second by which the backlog read in the window grew: the
+        least-squares slope of its readings (0 with fewer than two)."""
+        if len(self.backlog) < 2:
+            return 0.0
+        t, n = np.asarray(self.backlog, dtype=np.float64).T
+        return float(np.polyfit(t, n, 1)[0])
+
+    def checked_input(self, j: int) -> torch.Tensor:
+        return self.rows(*self.users[j])
+
+    def traced_input(self, j: int):
+        return j, self.rows(*self.users[j])
 
 
 def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
@@ -192,10 +320,11 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
     gen = torch.Generator(device=device).manual_seed(seed)
     phases.append(("device", time.perf_counter()))
     params = generator.make_params(model, gen)
-    b = t["batch"]
-    pool = generator.make_pool(POOL_BATCHES * b, model["n_items"], gen)
-    batches = pool.view(POOL_BATCHES, b, model["n_items"])
-    sample = [batches[0], batches[1]] if t["sam"] else []
+    open_loop = t.get("loop", "closed") == "open"
+    b = t["max_batch"] if open_loop else t["batch"]
+    pool = generator.make_pool(t.get("pool_users", POOL_BATCHES * b),
+                               model["n_items"], gen)
+    sample = [pool[:b], pool[b:2 * b]] if t["sam"] else []
     if cuda:
         torch.cuda.synchronize()
     phases.append(("inputs", time.perf_counter()))
@@ -212,17 +341,22 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
     if cuda:
         torch.cuda.synchronize()
     phases.append(("deploy", time.perf_counter()))
-    win = Window(deployed, apply, batches, seed,
-                 check_every or t["check_every"], check_rows)
-    for j in range(WARMUP_BATCHES):
-        win.step(-1 - j, spans=False)
+    every = check_every or t["check_every"]
+    if open_loop:
+        win = OpenWindow(deployed, apply, pool, seed, every, t["rate"], b,
+                         seconds + OPEN_SLACK_S)
+    else:
+        win = Window(deployed, apply,
+                     pool.view(POOL_BATCHES, b, model["n_items"]), seed,
+                     every, check_rows)
+    win.warm_up()
     prof = None
     if traced:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if cuda else [])
         with profile(activities=acts):        # the tracer's own set-up
-            win.step(-1, spans=True)
+            win.warm_up(spans=True)
         prof = profile(activities=acts)
     win.kept.clear()
     win.events.clear()
@@ -239,6 +373,8 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
     gc.collect()
     gc.freeze()
     start = time.perf_counter()
+    if open_loop:
+        win.open(start)
     j = 0
     while (time.perf_counter() - start < seconds
            or (traced and j < lead + n_traced)):
@@ -250,6 +386,7 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
             prof.stop()
         j += 1
     window_s = time.perf_counter() - start
+    users = win.close(window_s, j) if open_loop else None
     gc.unfreeze()
     win.n = j
 
@@ -257,7 +394,7 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
     peak = max(setup_peak, window_peak) if cuda else 0
     loaded = forbidden_modules()
     trc = trace.read(prof) if traced else None
-    lat = win.latencies_ms()
+    lat = win.latencies_ms()[:users["n_events"] if users else None]
     del deployed, win.deployed
     if cuda:
         torch.cuda.empty_cache()
@@ -268,7 +405,7 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
     n_checked = len(win.kept)
     for jj in sorted(win.kept):
         scores, ids = win.kept.pop(jj)
-        x = win.x(jj).index_select(0, win.rows)
+        x = win.checked_input(jj)
         ref, _ = ref_cf_kan.forward(ref_layers, hw, x)
         tally.add(check.compare(ref, scores, ids, x, win.k))
         del ref, scores
@@ -277,13 +414,15 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
     by_batch: Dict[int, List[Dict[str, int]]] = {}
     traced_counts = []
     for jj in range(lead, lead + n_traced) if traced else ():
-        p = jj % POOL_BATCHES
-        if p not in by_batch:
-            by_batch[p] = ref_cf_kan.forward(ref_layers, hw, win.x(jj))[1]
-        traced_counts.append(by_batch[p])
+        key, x = win.traced_input(jj)
+        if key not in by_batch:
+            by_batch[key] = ref_cf_kan.forward(ref_layers, hw, x)[1]
+        traced_counts.append(by_batch[key])
 
+    served = users["served"] if users else win.n * b
     result = {"correct": tally.correct and not loaded,
-              "attempted": win.n * b, "failed": tally.failed}
+              "attempted": users["due"] if users else served,
+              "failed": tally.failed}
     metrics = {}
     dev_info = {"platform": "gpu" if cuda else "cpu",
                 "kind": torch.cuda.get_device_name() if cuda else "cpu",
@@ -297,9 +436,11 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
         dev_info["busy_s"] = trc.busy_s()
         dev_info["window_s"] = trc.window_s
     else:
-        e2e = {"users_per_s": (win.n * b / window_s, "users/s"),
+        e2e = {"users_per_s": (served / window_s, "users/s"),
                "batch_p95_ms": (float(np.percentile(lat, 95)), "ms"),
                "setup_s": (setup_s, "s")}
+        if users:
+            e2e["user_p50_ms"] = (float(np.median(users["user_ms"])), "ms")
         for m in cell.end_to_end:
             v, unit = e2e[m["name"]]
             metrics[m["name"]] = {"value": v, "unit": unit}
@@ -308,6 +449,21 @@ def run(cell: resolve.Cell, seed: int, seconds: float, traced: bool,
     if traced:
         result["breakdown"] = {"device_ops": trc.top_ops(),
                                "idle_gaps": trc.idle_gaps()}
+    if users:
+        # the users' latency (due to ids on the host; only the median is a
+        # metric: the tail spreads between runs with the host, PERF.md §2),
+        # how late the server took them, what was still waiting when the
+        # window closed and how the backlog moved inside it
+        u = users["user_ms"]
+        result["generator"] = {
+            "user_p50_ms": float(np.median(u)),
+            "user_mean_ms": float(np.mean(u)),
+            "user_p95_ms": float(np.percentile(u, 95)),
+            "dequeue_p95_ms": float(np.percentile(users["dequeue_ms"], 95)),
+            "backlog": users["backlog"],
+            "backlog_slope": users["backlog_slope"], "rate": t["rate"],
+            "users_per_s": served / window_s,
+            "users_per_batch": served / max(users["n_events"], 1)}
     result["checks"] = {k: {"value": _finite(v["value"]),
                             "limit": v["limit"]}
                         for k, v in tally.lines().items()}
@@ -327,22 +483,31 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     cell = resolve.cell(ROOT, args.workload)
+    lm = cell.model.get("kind", "cf_kan") == "lm"
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < cell.chips:
         print(f"kanbench: {args.workload} needs {cell.chips} CUDA device(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     torch.set_num_threads(min(4, os.cpu_count() or 1))
-    result = run(cell, args.seed, args.seconds, bool(args.trace),
-                 t0=_T0)
+    if lm:
+        from kanbench import lm_run
+        result = lm_run.run(cell, args.seed, args.seconds, bool(args.trace),
+                            t0=_T0, t_imported=_T_IMPORTED)
+    else:
+        result = run(cell, args.seed, args.seconds, bool(args.trace),
+                     t0=_T0)
     loaded = result.pop("_loaded")
     info = result.pop("_batches")
     if loaded:
         print(f"kanbench: the run loaded {loaded}", file=sys.stderr)
         return 3
+    unit = "steps" if lm else "batches"
+    extra = (f", {info['completed']} requests completed, "
+             f"{info['steps_checked']} tokens checked" if lm else "")
     print(f"kanbench: {args.workload} seed {args.seed}: {info['window']} "
-          f"batches in {info['window_s']:.3f} s, {info['checked']} checked; "
-          f"set-up s {info['setup']}; card {_power_limit()}",
+          f"{unit} in {info['window_s']:.3f} s, {info['checked']} checked"
+          f"{extra}; set-up s {info['setup']}; card {_power_limit()}",
           file=sys.stderr)
     print(json.dumps(result))
     for name, c in result["checks"].items():

@@ -45,18 +45,71 @@ def test_bounds_and_run_length_fit_their_limits():
     assert (2 + 14 * 24) * (s + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_resolves_to_its_files(cell):
-    c = resolve.cell(REPO, cell)
+@pytest.mark.parametrize("cell", CELLS + ["online", "lm"])
+def test_cell_resolves_to_its_files(cell, tmp_path):
+    """A closed CF-KAN cell reports users a second and the batch's tail, an
+    open loop its users' median latency, an LM cell tokens a second and its
+    two tails (``online``, ``lm``: those files at the program's SMOKE
+    widths, as BENCHMARK.json holds no such cell yet); every cell its
+    set-up, and per-layer metrics that move one of its own end-to-end
+    metrics."""
+    root = REPO
+    if cell in ("online", "lm"):
+        root = tiny_root(tmp_path, *(("online.fused.b32", "cf-kan-1")
+                                     if cell == "online" else
+                                     ("engine.offline.c64", "mamba2-1.3b")))
+        cell = "tiny"
+    c = resolve.cell(root, cell)
     assert c.chips == 1
-    assert {m["name"] for m in c.end_to_end} == {"users_per_s",
-                                                 "batch_p95_ms", "setup_s"}
-    assert c.per_layer and set(c.limits) == {"score_gap", "rank_gap",
-                                             "bad_ids", "off_share"}
-    assert c.traffic["backend"] in ("fused", "cim", "cim_tiled")
+    e2e = {m["name"] for m in c.end_to_end}
+    if c.model.get("kind", "cf_kan") == "lm":
+        assert e2e == {"tokens_per_s", "ttft_p95_ms", "tpot_p95_ms",
+                       "setup_s"}
+        assert set(c.limits) == {"token_gap", "lead_miss_share",
+                                 "incomplete"}
+        assert c.limits["incomplete"] == 0
+        assert c.traffic["sessions"] == c.traffic["n_slots"]
+    else:
+        want = {"users_per_s", "batch_p95_ms", "setup_s"}
+        if c.traffic.get("loop") == "open":
+            # the rate fixes the users a second; the users feel the latency
+            want = {"user_p50_ms", "setup_s"}
+            assert c.traffic["rate"] > 0 and c.traffic["max_batch"] > 0
+        assert e2e == want
+        assert set(c.limits) == {"score_gap", "rank_gap", "bad_ids",
+                                 "off_share"}
+        assert c.traffic["backend"] in ("fused", "cim", "cim_tiled")
+    assert c.per_layer
     for m in c.per_layer:
-        assert m["moves"] == "users_per_s"
-        assert callable(resolve.reader(REPO, m["name"]))
+        assert m["moves"] in e2e - {"setup_s"}
+        assert callable(resolve.reader(root, m["name"]))
+
+
+def test_metric_lists_name_cells_that_report_what_they_move():
+    cells = {c: resolve.cell(REPO, c) for c in CELLS}
+    for m in BENCH["per_layer"] + BENCH["end_to_end"]:
+        for w in m.get("workloads", CELLS):
+            assert w in cells
+            if "moves" in m:
+                assert m["moves"] in {e["name"]
+                                      for e in cells[w].end_to_end}
+    for m in BENCH["per_layer"]:
+        assert 1 <= len(m["layer"]) <= 200 and "\n" not in m["layer"]
+
+
+def test_a_split_metric_is_read_by_its_base():
+    """``<metric>.<part>`` without a file of its own is read by
+    ``<metric>``'s reader; one with its own file by that."""
+    def module(metric):
+        return resolve.reader(REPO, metric).__module__
+
+    for split, base in (("device_idle_share.online", "device_idle_share"),
+                        ("peak_mem_gb.engine", "peak_mem_gb")):
+        assert not (REPO / "kanbench" / "metrics" / f"{split}.py").exists()
+        assert module(split) == module(base)
+    assert module("mfu.engine") != module("mfu.batch")
+    with pytest.raises(FileNotFoundError):
+        resolve.reader(REPO, "no_such_metric.part")
 
 
 def test_configs_are_the_programs():

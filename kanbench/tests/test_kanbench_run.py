@@ -13,6 +13,7 @@ import sys
 import pytest
 import torch
 
+import kanbench
 from kbtiny import REPO, tiny_root
 from kanbench import control, resolve, system
 from kanbench import run as bench
@@ -124,11 +125,35 @@ def test_loads_no_jax_and_no_jax_package(tmp_path):
     assert out.stdout.split()[-2:] == ["[]", "True"]
 
 
+# the parent's values of a closed-loop cell's checks at this seed (every
+# batch checked, every pool batch seen): the refactor for the open loop and
+# the LM cells kept them
+GOLDEN = {"score.fused.b2048": 2.559654654652897e-07,
+          "chipeval.cim_tiled.b256": 2.710056802768541e-07,
+          "chipeval.cim.b256": 2.3683124472000302e-07}
+
+
+@pytest.mark.parametrize("traffic", TRAFFICS)
+def test_closed_loop_keeps_its_result_line(tmp_path, traffic):
+    res = _run(tmp_path, traffic, seconds=0.8, check_every=1)
+    assert res["_batches"]["window"] >= 8
+    assert list(res) == ["correct", "attempted", "failed", "metrics",
+                         "device", "checks", "_loaded", "_batches"]
+    assert list(res["metrics"]) == ["users_per_s", "batch_p95_ms", "setup_s"]
+    assert res["attempted"] == 16 * res["_batches"]["window"]
+    assert res["checks"] == {
+        "score_gap": {"value": pytest.approx(GOLDEN[traffic], rel=1e-6),
+                      "limit": 1e-4},
+        "rank_gap": {"value": 0.0, "limit": 1e-4},
+        "bad_ids": {"value": 0.0, "limit": 0},
+        "off_share": {"value": 0.0, "limit": 0.25}}
+
+
 def test_forbidden_names_are_compared_whole(monkeypatch):
     monkeypatch.setitem(sys.modules, "repro.core", object())
     assert bench.forbidden_modules() == ["repro.core"]
     monkeypatch.delitem(sys.modules, "repro.core")
-    assert "repro_torch" not in bench.FORBIDDEN
+    assert "repro_torch" not in kanbench.FORBIDDEN
     assert all(not m.startswith("repro_torch")
                for m in bench.forbidden_modules())
 

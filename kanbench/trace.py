@@ -2,7 +2,9 @@
 few batches, reduced to what the per-layer readers need.
 
 The benchmark places its own ranges (``record_function``) around each batch
-and around its calls into the program's layers (``SPANS``). A device
+and around its calls into the program's layers (``SPANS``); on the LM cells
+around each engine step (``ENGINE_STEP``) and the reference's forward
+passes (``LM_REFERENCE``, after the window: never traced). A device
 operation belongs to a range when the host call that launched it falls
 inside the range. Kernels that the program launches through its own
 library (``ctypes``) come with no host call in the trace; the batches run
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import heapq
 import json
 import os
 import re
@@ -22,6 +25,8 @@ from typing import Dict, List, Optional, Tuple
 
 BATCH = "kanbench.batch"
 SPANS = ("kanbench.kan_apply", "kanbench.rank")
+ENGINE_STEP = "kanbench.engine_step"
+LM_REFERENCE = "kanbench.lm_reference"
 _DEVICE = {"kernel", "gpu_memcpy", "gpu_memset"}
 _LAUNCH = {"cuda_runtime", "cuda_driver"}
 _HOST = {"cpu_op", "user_annotation", "cuda_runtime", "cuda_driver",
@@ -40,7 +45,8 @@ class DeviceOp:
 class Trace:
     """Device operations of the traced batches, by the ranges they ran in."""
     ops: List[DeviceOp]
-    window: Tuple[float, float]       # first batch's start, last one's end
+    window: Tuple[float, float]       # first batch's (step's) start, last
+    #                                   one's end
     span_counts: Dict[str, int]       # instances of each range
     host: List[Tuple[float, float, str]]  # host events, for the idle gaps
 
@@ -91,28 +97,39 @@ class Trace:
                 gaps.append((reach, nxt))
             if op is not None:
                 reach = max(reach, op.end)
+        # one sweep over the host events by start: a heap of those begun,
+        # shortest first, drops each that ended before the gap's middle
+        host, k, live = sorted(self.host), 0, []
         for lo, hi in gaps:
             mid = 0.5 * (lo + hi)
-            inner = [(e - s, name) for s, e, name in self.host
-                     if s <= mid <= e]
-            name = min(inner)[1] if inner else "no host event"
+            while k < len(host) and host[k][0] <= mid:
+                s, e, name = host[k]
+                heapq.heappush(live, (e - s, name, e))
+                k += 1
+            while live and live[0][2] < mid:
+                heapq.heappop(live)
+            name = live[0][1] if live else "no host event"
             by[name] = by.get(name, 0.0) + (hi - lo) / 1e6
         return [[k, v] for k, v in sorted(by.items(), key=lambda kv: -kv[1])
                 [:n]]
 
 
-def read(prof) -> Trace:
+def read(prof, outer: str = BATCH, spans: Tuple[str, ...] = SPANS
+         ) -> Trace:
     """Reduce a stopped ``torch.profiler.profile`` to a ``Trace`` (through
-    its Chrome trace, written to and read back from a temporary file)."""
+    its Chrome trace, written to and read back from a temporary file):
+    ``outer`` is the range of one batch (or engine step), ``spans`` the
+    ranges inside it."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return reduce(events)
+    return reduce(events, outer, spans)
 
 
-def reduce(events: List[Dict]) -> Trace:
+def reduce(events: List[Dict], outer: str = BATCH,
+           spans_in: Tuple[str, ...] = SPANS) -> Trace:
     """A ``Trace`` from Chrome trace events."""
     spans: Dict[str, List[Tuple[float, float]]] = {}
     launches, device, host = {}, [], []
@@ -126,11 +143,11 @@ def reduce(events: List[Dict]) -> Trace:
             device.append((ts, end, e["name"], corr))
         if cat in _LAUNCH and corr is not None:
             launches[corr] = ts
-        if cat == "user_annotation" and e["name"] in (BATCH,) + SPANS:
+        if cat == "user_annotation" and e["name"] in (outer,) + spans_in:
             spans.setdefault(e["name"], []).append((ts, end))
         if cat in _HOST:
             host.append((ts, end, e["name"]))
-    batches = sorted(spans.get(BATCH, []))
+    batches = sorted(spans.get(outer, []))
     if not batches:
         return Trace([], (0.0, 0.0), {}, [])
     window = (batches[0][0], batches[-1][1])
@@ -146,9 +163,9 @@ def reduce(events: List[Dict]) -> Trace:
     ops = []
     for ops_j in per_batch.values():
         for ts, end, name, at in ops_j:
-            inside = tuple(s for s in SPANS if at is not None and any(
+            inside = tuple(s for s in spans_in if at is not None and any(
                 a <= at <= b for a, b in spans.get(s, [])))
-            ops.append(DeviceOp(name, ts, end, (BATCH,) + inside))
+            ops.append(DeviceOp(name, ts, end, (outer,) + inside))
     counts = {name: len(v) for name, v in spans.items()}
     host = [h for h in host if h[1] >= window[0] and h[0] <= window[1]]
     return Trace(ops, window, counts, host)
